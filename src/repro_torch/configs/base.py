@@ -1,0 +1,104 @@
+"""Config system: architecture + RetroInfer knobs.
+
+Port of ``repro/configs/base.py`` (dataclasses only, no JAX). Field names,
+defaults and derived methods are kept identical so a test can compare the
+two packages field by field. The port has one decode-attention path (the
+paged kernel), so ``attn_impl`` is kept only for parity of the dataclass.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class AttnConfig:
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10_000.0
+    softcap: Optional[float] = None          # gemma2 logit softcapping
+    sliding_window: Optional[int] = None     # window width for "local" layers
+    # layer pattern, cycled over depth: "g" global, "l" local(sliding window)
+    pattern: Tuple[str, ...] = ("g",)
+
+
+@dataclass(frozen=True)
+class RetroConfig:
+    """Wave-index geometry (paper Sec. 4.2, 5.1 defaults)."""
+    avg_cluster: int = 16                    # 1 centroid per 16 tokens
+    cluster_cap: int = 32                    # fixed capacity (2x avg)
+    prefill_segment: int = 8192              # segmented clustering segment
+    update_segment: int = 1024               # decode-time flush granularity
+    sink: int = 4                            # steady zone: initial tokens
+    local: int = 64                          # steady zone: local window
+    retrieval_frac: float = 0.018            # retrieval zone budget (1.8%)
+    estimation_frac: float = 0.232           # estimation zone budget (23.2%)
+    kmeans_iters: int = 10
+    centering: bool = True                   # MagicPIG-style mean centering
+    distributed_retrieval: bool = False
+    serial_prefill_segments: bool = False
+    attn_impl: str = "jnp"
+    offload: bool = False
+    cache_clusters: int = 0
+    cache_frac: float = 0.2
+    cache_policy: str = "lru"
+
+    def n_clusters(self, seq_len: int) -> int:
+        return max(1, seq_len // self.avg_cluster)
+
+    def r_clusters(self, seq_len: int) -> int:
+        m = self.n_clusters(seq_len)
+        return max(1, int(round(m * self.retrieval_frac)))
+
+    def e_clusters(self, seq_len: int) -> int:
+        m = self.n_clusters(seq_len)
+        return max(1, int(round(m * self.estimation_frac)))
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    arch_id: str
+    family: str                              # dense|moe|ssm|hybrid|vlm|audio
+    n_layers: int
+    d_model: int
+    d_ff: int
+    vocab: int
+    attn: Optional[AttnConfig] = None
+    moe: Optional[object] = None             # MoEConfig: not ported yet
+    ssm: Optional[object] = None             # SSMConfig: not ported yet
+    shared_attn_every: int = 0
+    encoder_layers: int = 0
+    encoder_frames: int = 1500
+    num_patch_tokens: int = 0
+    act: str = "silu"                        # "silu" | "gelu" (tanh approx)
+    moe_dispatch_groups: int = 1
+    sparse_prefill_blocks: int = 0
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"                  # param/compute dtype
+    retro: RetroConfig = field(default_factory=RetroConfig)
+    source: str = ""                         # citation
+
+    @property
+    def n_heads(self) -> int:
+        return self.attn.n_heads if self.attn else 0
+
+    @property
+    def n_kv_heads(self) -> int:
+        return self.attn.n_kv_heads if self.attn else 0
+
+    @property
+    def head_dim(self) -> int:
+        return self.attn.head_dim if self.attn else 0
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Per-layer attention kind ('g'/'l') cycled from the pattern."""
+        if self.attn is None:
+            return tuple("s" for _ in range(self.n_layers))
+        p = self.attn.pattern
+        return tuple(p[i % len(p)] for i in range(self.n_layers))
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

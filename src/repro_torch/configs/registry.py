@@ -1,0 +1,27 @@
+"""Architecture registry. Port of ``repro/configs/registry.py`` without JAX:
+``input_specs`` and ``materialize_batch`` are not ported yet, and only the
+gemma2-2b config module exists in the port."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig, RetroConfig
+
+ALIASES = {"gemma2-2b": "gemma2_2b"}
+
+
+def get_config(arch: str) -> ModelConfig:
+    arch = ALIASES.get(arch, arch)
+    return importlib.import_module(f"repro_torch.configs.{arch}").CONFIG
+
+
+def reduced_config(arch: str) -> ModelConfig:
+    arch = ALIASES.get(arch, arch)
+    return importlib.import_module(f"repro_torch.configs.{arch}").reduced()
+
+
+# Reduced-scale RetroConfig used by every smoke variant.
+SMOKE_RETRO = RetroConfig(avg_cluster=8, cluster_cap=16, prefill_segment=256,
+                          update_segment=128, sink=4, local=32,
+                          retrieval_frac=0.06, estimation_frac=0.25,
+                          kmeans_iters=3)

@@ -1,0 +1,144 @@
+"""Wrapper around the paged wave-attention kernel.
+
+Port of ``repro/kernels/wave_attention/ops.py::paged_wave_attention``. It
+keeps the reference's public layout, flattens (B, Hkv) into BH as views (a
+store is never converted or copied), and then:
+
+* CPU tensors go to the plain twin ``ref.paged_wave_attention_torch``;
+* CUDA tensors go to the CUDA kernel ``csrc/paged_wave_attention.cu``
+  (built at first use, loaded with ctypes) — it launches or raises.
+
+``paged_wave_attention.launches`` counts kernel launches (never twin runs).
+``paged_wave_attention_plain`` runs the twin on any device with the same
+arguments (the kernel's yardstick on the card).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.wave_attention.ref import paged_wave_attention_torch
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_wave_attention.cu"
+STORE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the wrapper's positional arguments, in order
+ARG_NAMES = ("qg", "sink_k", "sink_v", "local_k", "local_v", "local_pos",
+             "k_store", "v_store", "pos_store", "idx_r", "live", "rowb",
+             "est_logit", "cs_e", "vs_e")
+# the flat (BH, ...) order of the twin and of the C entry point
+_FLAT_ORDER = ("idx_r", "rowb", "live", "qg", "sink_k", "sink_v", "local_k",
+               "local_v", "local_pos", "k_store", "v_store", "pos_store",
+               "est_logit", "cs_e", "vs_e")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load(SOURCE)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.paged_wave_attention
+    fn.restype = I
+    # store_dtype; 16 pointers (idx .. out); BH, G, hd, Ss, sink_len, Lb, M,
+    # cap, r, E; scale, softcap, use_softcap; stream
+    fn.argtypes = [I] + [P] * 16 + [I] * 10 + [F, F, I, P]
+    return lib
+
+
+def _flatten(args):
+    """Check the (B, H, ...) arguments and return them as (BH, ...) views in
+    the flat order, keyed by name. Raises on device, dtype, shape or
+    contiguity the kernel does not take."""
+    a = dict(zip(ARG_NAMES, args))
+    B, H, G, hd = a["qg"].shape
+    dev = a["qg"].device
+    S, Lb = a["sink_k"].shape[2], a["local_k"].shape[2]
+    M, cap = a["k_store"].shape[2], a["k_store"].shape[3]
+    r, E = a["idx_r"].shape[2], a["vs_e"].shape[2]
+    kv = a["k_store"].dtype
+    if kv not in STORE_DTYPES:
+        raise TypeError(f"k_store dtype {kv} not in {tuple(STORE_DTYPES)}")
+    f32, i32 = torch.float32, torch.int32
+    spec = dict(qg=((B, H, G, hd), f32), sink_k=((B, H, S, hd), kv),
+                sink_v=((B, H, S, hd), kv), local_k=((B, H, Lb, hd), kv),
+                local_v=((B, H, Lb, hd), kv), local_pos=((B, H, Lb), i32),
+                k_store=((B, H, M, cap, hd), kv),
+                v_store=((B, H, M, cap, hd), kv),
+                pos_store=((B, H, M, cap), i32), idx_r=((B, H, r), i32),
+                live=((B, H, r), i32), rowb=((B, H, 2), i32),
+                est_logit=((B, H, G, E), f32), cs_e=((B, H, G, E), f32),
+                vs_e=((B, H, E, hd), f32))
+    for name, (shape, dtype) in spec.items():
+        t = a[name]
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return {n: a[n].view((B * H,) + a[n].shape[2:]) for n in _FLAT_ORDER}
+
+
+def paged_wave_attention_plain(*args, softcap=None):
+    """The plain twin on the wrapper's arguments, on any device."""
+    flat = _flatten(args)
+    qg = args[0]
+    out = paged_wave_attention_torch(*flat.values(),
+                                     sink_len=flat["sink_k"].shape[1],
+                                     softcap=softcap)
+    return out.view(qg.shape)
+
+
+def paged_wave_attention(qg, sink_k, sink_v, local_k, local_v, local_pos,
+                         k_store, v_store, pos_store, idx_r, live, rowb,
+                         est_logit, cs_e, vs_e, *, softcap=None):
+    """Gather-free fused decode merge over the raw wave-index zones.
+
+    qg: (B, H, G, hd) f32; sink_k/v: (B, H, S, hd); local_k/v: (B, H, Lb, hd)
+    with local_pos (B, H, Lb) int32 (-1 = empty slot); k/v_store:
+    (B, H, M, cap, hd) with pos_store (B, H, M, cap) int32 — K/V zones in
+    one storage dtype (bf16 or f32), read in place; idx_r/live: (B, H, r)
+    int32; rowb: (B, H, 2) int32 [lo (exclusive), q_pos (inclusive)];
+    est_logit/cs_e: (B, H, G, E) f32; vs_e: (B, H, E, hd) f32.
+    Returns (B, H, G, hd) f32.
+    """
+    args = (qg, sink_k, sink_v, local_k, local_v, local_pos, k_store,
+            v_store, pos_store, idx_r, live, rowb, est_logit, cs_e, vs_e)
+    dev = qg.device
+    if dev.type == "cpu":
+        return paged_wave_attention_plain(*args, softcap=softcap)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    flat = _flatten(args)
+    B, H, G, hd = qg.shape
+    if G not in (1, 2, 4, 8):
+        raise ValueError(f"kernel takes G in (1, 2, 4, 8), got {G}")
+    if hd > 256 or hd % 8 or (hd // 8) & (hd // 8 - 1):
+        raise ValueError(f"kernel takes hd = 8 * 2^k <= 256, got {hd}")
+    for name in ("sink_k", "sink_v", "local_k", "local_v", "k_store",
+                 "v_store"):
+        if flat[name].data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    out = torch.empty((B * H, G, hd), dtype=torch.float32, device=dev)
+    S, Lb = flat["sink_k"].shape[1], flat["local_k"].shape[1]
+    M, cap = flat["k_store"].shape[1:3]
+    r, E = flat["idx_r"].shape[1], flat["vs_e"].shape[1]
+    use_cap = softcap is not None and softcap > 0
+    err = _lib().paged_wave_attention(
+        STORE_DTYPES[k_store.dtype],
+        *(t.data_ptr() for t in flat.values()), out.data_ptr(),
+        B * H, G, hd, S, S, Lb, M, cap, r, E, 1.0 / math.sqrt(hd),
+        float(softcap) if use_cap else 0.0, int(use_cap),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_wave_attention kernel launch failed: "
+                           f"cudaError {err}")
+    paged_wave_attention.launches += 1
+    return out.view(B, H, G, hd)
+
+
+paged_wave_attention.launches = 0

@@ -1,0 +1,141 @@
+"""Plain PyTorch twin of the paged wave-attention kernel.
+
+Port of ``repro/kernels/wave_attention/ref.py::paged_wave_attention_jnp``:
+same arguments, same fold order (sink -> local buffer -> one retrieved
+cluster at a time -> estimation finalize) and the same masking constants.
+The wrapper in ``ops.py`` runs it for CPU tensors; ``chip_smoke.py`` holds
+the CUDA kernel against it on the card.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG = -1e30
+
+
+def paged_wave_attention_torch(idx, rowb, live, q, sink_k, sink_v,
+                               local_k, local_v, local_pos,
+                               k_store, v_store, pos_store,
+                               est_logit, cs, vs, *, sink_len: int,
+                               softcap=None):
+    """Flat-batch zone walk. idx/live: (BH, r) int; rowb: (BH, 2) int
+    [lo (exclusive), hi (inclusive)]; q: (BH, G, hd); sink_k/v: (BH, Ss, hd);
+    local_k/v: (BH, Lb, hd) with local_pos (BH, Lb); k/v_store:
+    (BH, M, cap, hd) with pos_store (BH, M, cap); est_logit/cs: (BH, G, E);
+    vs: (BH, E, hd). Returns (BH, G, hd) f32."""
+    BH, G, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    f32 = torch.float32
+    q = q.to(f32)
+    lo = rowb[:, 0:1].long()                        # (BH, 1) excl lower bound
+    hi = rowb[:, 1:2].long()                        # (BH, 1) incl upper bound
+
+    def fold(carry, k, v, pos, extra_ok=None):
+        """Online-softmax accumulate of one (BH, T, hd) tile."""
+        m, l, acc = carry                           # (BH,G) (BH,G) (BH,G,hd)
+        s = torch.einsum("bgd,btd->bgt", q, k.to(f32)) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        pos = pos.long()
+        ok = (pos >= 0) & (pos <= hi) & (pos > lo)
+        if extra_ok is not None:
+            ok = ok & extra_ok
+        s = torch.where(ok[:, None, :], s, torch.full_like(s, NEG))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.clamp(m_new, min=-1e20)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                           torch.zeros_like(m))
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(ok[:, None, :], p, torch.zeros_like(p))
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bgt,btd->bgd", p,
+                                                   v.to(f32))
+        return m_new, l, acc
+
+    dev = q.device
+    carry = (torch.full((BH, G), -math.inf, dtype=f32, device=dev),
+             torch.zeros((BH, G), dtype=f32, device=dev),
+             torch.zeros((BH, G, hd), dtype=f32, device=dev))
+
+    sink_pos = torch.arange(sink_len, device=dev)[None, :].expand(BH, sink_len)
+    carry = fold(carry, sink_k[:, :sink_len], sink_v[:, :sink_len], sink_pos)
+    carry = fold(carry, local_k, local_v, local_pos)
+
+    rows = torch.arange(BH, device=dev)
+    for j in range(idx.shape[1]):
+        c = idx[:, j].long()
+        carry = fold(carry, k_store[rows, c], v_store[rows, c],
+                     pos_store[rows, c], extra_ok=(live[:, j] > 0)[:, None])
+
+    m, l, acc = carry
+    est_logit, cs, vs = est_logit.to(f32), cs.to(f32), vs.to(f32)
+    m_fin = torch.clamp(torch.maximum(m, est_logit.amax(dim=-1)), min=-1e20)
+    corr = torch.where(torch.isfinite(m), torch.exp(m - m_fin),
+                       torch.zeros_like(m))
+    est_live = est_logit > NEG / 2
+    zero = torch.zeros_like(est_logit)
+    w_den = torch.where(est_live, torch.exp(est_logit - m_fin[..., None]), zero)
+    w_num = torch.where(est_live, torch.exp(cs - m_fin[..., None]), zero)
+    den = l * corr + w_den.sum(dim=-1)
+    num = acc * corr[..., None] + torch.einsum("bge,bed->bgd", w_num, vs)
+    return num / torch.clamp(den, min=1e-30)[..., None]
+
+
+def random_decode_inputs(*, B=2, H=4, G=2, hd=256, M=1280, cap=32, sink=4,
+                         lbuf=1088, r=18, e=238, q_pos=(16500, 13000),
+                         local_len=(100, 1088), window=None, dtype="bfloat16",
+                         live_frac=1.0, r0=False, overflow=True, seed=0,
+                         device="cpu"):
+    """Random kernel inputs in the wrapper's (B, H, ...) layout, for holding
+    the kernel against the twin. Defaults are gemma2-2b's decode shapes at a
+    16384-token context with the default RetroConfig. K/V are in the storage
+    ``dtype``; cluster positions spread over [sink, q_pos + 64) so some lie
+    in the future or outside the window; local buffers are ragged; about a
+    tenth of the estimation entries are dead (NEG). ``r0``: one dead
+    retrieval slot (steady-zone-only plan); ``overflow``: the estimation
+    zone carries the r overflow entries."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    i32 = torch.int32
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=device)
+
+    qp = torch.tensor(q_pos, dtype=i32, device=device)[:B]
+    ll = torch.tensor(local_len, dtype=i32, device=device)[:B]
+    slot = torch.arange(lbuf, dtype=i32, device=device)
+    local_pos = torch.where(slot[None] < ll[:, None],
+                            (qp - ll + 1)[:, None] + slot[None],
+                            torch.full_like(slot[None], -1))
+    pos_store = (rand(B, H, M, cap) * (qp + 64 - sink).float()
+                 [:, None, None, None]).to(i32) + sink
+    pos_store = torch.where(rand(B, H, M, cap) < 0.3,
+                            torch.full_like(pos_store, -1), pos_store)
+    lo = torch.full_like(qp, -1) if window is None else torch.clamp(
+        torch.floor(qp.float() - window).to(i32), min=-1)
+    rowb = torch.stack([lo, qp], -1)[:, None, :].expand(B, H, 2).contiguous()
+    if r0:
+        r = 1
+        live = torch.zeros((B, H, 1), dtype=i32, device=device)
+    else:
+        live = (rand(B, H, r) < live_frac).to(i32)
+    idx = torch.stack([torch.randperm(M, generator=g, device=device)[:r]
+                       for _ in range(B * H)]).reshape(B, H, r).to(i32)
+    E = max(1, e + (r if overflow and not r0 else 0))
+    est_logit = 3 * randn(B, H, G, E)
+    dead = rand(B, H, G, E) < 0.1
+    if e == 0 and not overflow:
+        dead[:] = True
+    est_logit = torch.where(dead, torch.full_like(est_logit, NEG), est_logit)
+    return [randn(B, H, G, hd),
+            randn(B, H, sink, hd).to(dt), randn(B, H, sink, hd).to(dt),
+            randn(B, H, lbuf, hd).to(dt), randn(B, H, lbuf, hd).to(dt),
+            local_pos[:, None, :].expand(B, H, lbuf).contiguous(),
+            randn(B, H, M, cap, hd).to(dt), randn(B, H, M, cap, hd).to(dt),
+            pos_store, idx, live, rowb,
+            est_logit, 3 * randn(B, H, G, E), 20 * randn(B, H, E, hd)]

@@ -1,0 +1,249 @@
+"""Dense GQA transformer serving path (retro runtime).
+
+Port of ``repro/models/transformer.py``, dense family only: init, chunked
+prefill (exact chunk attention against an admission cache while the wave
+index is built incrementally), its finalize, and the retro decode step with
+the fused paged-attention path. The JAX layer scan becomes a Python loop
+over per-layer parameter dicts and per-layer states.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import attention as wa
+from repro_torch.core.wave_index import (WaveState, append_token,
+                                         init_chunked_prefill, init_wave_state,
+                                         prefill_append_chunk, prefill_finalize,
+                                         scatter_chunk_rows)
+from repro_torch.core.zones import ZonePlan, plan_zones
+from repro_torch.models import layers as L
+
+GLOBAL_WINDOW = 1.0e9   # "no sliding window" sentinel
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def layer_windows(cfg: ModelConfig) -> List[float]:
+    return [float(cfg.attn.sliding_window) if kind == "l" else GLOBAL_WINDOW
+            for kind in cfg.layer_kinds()]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _dense(gen, shape, dtype, device, scale=None):
+    scale = 1.0 / math.sqrt(shape[0]) if scale is None else scale
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * scale).to(dtype)
+
+
+def init_transformer(cfg: ModelConfig, generator: torch.Generator,
+                     device) -> Dict[str, Any]:
+    """Random parameters with the reference's distributions: normal scaled
+    by 1/sqrt(fan_in), embedding by d_model^-0.5, zero norms, tied
+    embeddings. ``generator`` must live on ``device``."""
+    a, d, dt = cfg.attn, cfg.d_model, torch_dtype(cfg)
+    if cfg.moe is not None:
+        raise NotImplementedError("MoE layers are not ported yet")
+
+    def dense(shape, scale=None):
+        return _dense(generator, shape, dt, device, scale)
+
+    layers = []
+    for _ in range(cfg.n_layers):
+        layers.append({
+            "ln1": torch.zeros((d,), dtype=dt, device=device),
+            "ln2": torch.zeros((d,), dtype=dt, device=device),
+            "attn": {"wq": dense((d, a.n_heads * a.head_dim)),
+                     "wk": dense((d, a.n_kv_heads * a.head_dim)),
+                     "wv": dense((d, a.n_kv_heads * a.head_dim)),
+                     "wo": dense((a.n_heads * a.head_dim, d))},
+            "mlp": {"w_gate": dense((d, cfg.d_ff)), "w_up": dense((d, cfg.d_ff)),
+                    "w_down": dense((cfg.d_ff, d))},
+        })
+    params = {"embed": dense((cfg.vocab, d), scale=d ** -0.5),
+              "layers": layers, "window": layer_windows(cfg),
+              "final_norm": torch.zeros((d,), dtype=dt, device=device)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((d, cfg.vocab))
+    return params
+
+
+# ---------------------------------------------------------------------------
+# shared pieces
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params, cfg: ModelConfig, tokens):
+    return params["embed"][tokens] * math.sqrt(cfg.d_model)
+
+
+def unembed(params, cfg: ModelConfig, x):
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (x @ w).float()
+
+
+def _ffn(lp, x, cfg: ModelConfig):
+    return L.mlp_apply(lp["mlp"], x, cfg.act)
+
+
+class ServeState(NamedTuple):
+    """Per-layer wave states of the decode batch."""
+    kv: List[WaveState]
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill — admission interleaved with decode.
+# ---------------------------------------------------------------------------
+
+
+class PrefillChunkState(NamedTuple):
+    """Admission-time state, one entry per layer: the exact K/V of the
+    prompt so far (``cache``) and the streaming wave-index build (``wave``)."""
+    cache: List[wa.DenseCache]
+    wave: List[Any]
+
+
+def init_prefill_chunk_state(cfg: ModelConfig, B: int, max_ctx: int, *,
+                             chunk: int, gen_headroom: int = 4096,
+                             device="cuda") -> PrefillChunkState:
+    """``max_ctx`` pins the admission geometry to the engine's decode state
+    so the finalized state grafts into the shared batch."""
+    a, retro, dt = cfg.attn, cfg.retro, torch_dtype(cfg)
+    plan = plan_zones(max_ctx, retro, gen_headroom)
+    caches, waves = [], []
+    for _ in range(cfg.n_layers):
+        z = lambda: torch.zeros((B, a.n_kv_heads, max_ctx, a.head_dim),
+                                dtype=dt, device=device)
+        caches.append(wa.DenseCache(
+            z(), z(), torch.zeros((B,), dtype=torch.int32, device=device)))
+        waves.append(init_chunked_prefill(B, a.n_kv_heads, a.head_dim,
+                                          plan.m_max, retro, chunk, dt,
+                                          device=device))
+    return PrefillChunkState(cache=caches, wave=waves)
+
+
+def _cache_append_chunk(cache: wa.DenseCache, k, v, clens) -> wa.DenseCache:
+    """Append a (B, C, Hkv, hd) chunk at each row's cursor, in place; only
+    each row's valid prefix is written."""
+    B, C = k.shape[:2]
+    cap = cache.k.shape[2]
+    j = torch.arange(C, dtype=torch.int32, device=k.device)[None, :]
+    idx = torch.where(j < clens[:, None], cache.length[:, None] + j,
+                      torch.full_like(j, cap))
+    scatter_chunk_rows(cache.k, k.transpose(1, 2), idx)
+    scatter_chunk_rows(cache.v, v.transpose(1, 2), idx)
+    return wa.DenseCache(cache.k, cache.v, cache.length + clens)
+
+
+def _chunk_attention(q, cache: wa.DenseCache, t0, clens, *, window=None,
+                     softcap=None):
+    """Exact causal attention of chunk queries against the admission cache
+    (which already holds the chunk), in f32. q: (B, C, Hq, hd); t0: (B,)
+    absolute position of q[:, 0]."""
+    B, C, Hq, hd = q.shape
+    Hkv = cache.k.shape[1]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, C, Hkv, G, hd)
+    s = torch.einsum("bchgd,bhtd->bhgct", qg.float(), cache.k.float()) * scale
+    s = L.soft_cap(s, softcap)
+    kpos = torch.arange(cache.k.shape[2], device=q.device)
+    q_abs = t0[:, None] + torch.arange(C, device=q.device)     # (B, C)
+    ok = (kpos[None, None, :] <= q_abs[:, :, None]) \
+        & (kpos[None, None, :] < (t0 + clens)[:, None, None])
+    if window is not None:
+        ok = ok & (kpos[None, None, :].float()
+                   > q_abs[:, :, None].float() - window)
+    s = torch.where(ok[:, None, None, :, :], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgct,bhtd->bhgcd", p, cache.v.float())
+    return o.permute(0, 3, 1, 2, 4).reshape(B, C, Hq, hd).to(q.dtype)
+
+
+def prefill_chunk(params, cfg: ModelConfig, tokens, state: PrefillChunkState,
+                  *, chunk_lens=None) -> Tuple[torch.Tensor, PrefillChunkState]:
+    """Process the next prompt chunk. tokens: (B, C) right-padded; returns
+    (logits at each row's last valid chunk position, new state)."""
+    a, retro = cfg.attn, cfg.retro
+    B, C = tokens.shape
+    dev = tokens.device
+    clens = torch.full((B,), C, dtype=torch.int32, device=dev) \
+        if chunk_lens is None else chunk_lens.to(torch.int32)
+    t0 = state.cache[0].length                               # (B,)
+    positions = t0[:, None] + torch.arange(C, device=dev)    # (B, C)
+    x = embed_tokens(params, cfg, tokens)
+    caches, waves = [], []
+    for lp, cache_l, wave_l, window in zip(params["layers"], state.cache,
+                                           state.wave, params["window"]):
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = L.attention_qkv(lp["attn"], h, a.n_heads, a.n_kv_heads,
+                                  a.head_dim, positions, a.rope_theta)
+        cache_l = _cache_append_chunk(cache_l, k, v, clens)
+        o = _chunk_attention(q, cache_l, t0, clens, window=window,
+                             softcap=a.softcap)
+        x = x + o.reshape(B, C, -1) @ lp["attn"]["wo"]
+        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        y = _ffn(lp, h, cfg)
+        waves.append(prefill_append_chunk(wave_l, k, v, retro, clens))
+        caches.append(cache_l)
+        x = x + y
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    last = torch.clamp(clens - 1, min=0).long()
+    x_last = x[torch.arange(B, device=dev), last]
+    return unembed(params, cfg, x_last), PrefillChunkState(cache=caches,
+                                                           wave=waves)
+
+
+def finalize_prefill_chunk(cfg: ModelConfig, state: PrefillChunkState, *,
+                           total_len: int) -> ServeState:
+    """Close a chunked admission: cluster the tail and install the local
+    window of every layer's wave index."""
+    return ServeState(kv=[prefill_finalize(w, cfg.retro, total_len)
+                          for w in state.wave])
+
+
+def decode_step(params, cfg: ModelConfig, state: ServeState, token, *,
+                plan: ZonePlan, active: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, ServeState]:
+    """One generation step (retro runtime, fused paged attention).
+    token: (B,) -> logits (B, V) f32. ``active``: optional (B,) bool slot
+    mask — free rows skip the KV append; their logits are discarded."""
+    a, retro = cfg.attn, cfg.retro
+    x = embed_tokens(params, cfg, token)                       # (B, D)
+    B = x.shape[0]
+    kv = []
+    for lp, lstate, window in zip(params["layers"], state.kv, params["window"]):
+        pos = lstate.length                                    # (B,)
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = L.attention_qkv(lp["attn"], h[:, None, :], a.n_heads,
+                                  a.n_kv_heads, a.head_dim, pos[:, None],
+                                  a.rope_theta)
+        q, k, v = q[:, 0], k[:, 0], v[:, 0]                    # (B, H*, hd)
+        lstate = append_token(lstate, k, v, active=active)
+        o = wa.wave_attention_decode(q, lstate, retro, plan, window=window,
+                                     softcap=a.softcap).out
+        x = x + o.reshape(B, -1) @ lp["attn"]["wo"]
+        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + _ffn(lp, h, cfg)
+        kv.append(lstate)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(params, cfg, x), ServeState(kv=kv)
+
+
+def init_serve_state(cfg: ModelConfig, B: int, seq_len: int, *,
+                     gen_headroom: int = 4096, device="cuda") -> ServeState:
+    """All-free decode batch (every per-row counter at zero) awaiting
+    per-slot grafts: the reference's ``zero_fill=True`` state."""
+    a, retro = cfg.attn, cfg.retro
+    plan = plan_zones(seq_len, retro, gen_headroom)
+    return ServeState(kv=[
+        init_wave_state(B, a.n_kv_heads, a.head_dim, plan.m_max, retro,
+                        torch_dtype(cfg), device)
+        for _ in range(cfg.n_layers)])

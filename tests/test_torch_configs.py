@@ -1,0 +1,48 @@
+"""Port configs equal the JAX package's, field by field."""
+import dataclasses
+
+import pytest
+import torch
+
+from repro.configs import gemma2_2b as ref_gemma
+from repro.configs import registry as ref_registry
+from repro.configs.base import RetroConfig as RefRetro
+from repro_torch.configs import gemma2_2b, registry
+from repro_torch.configs.base import RetroConfig
+from repro_torch.core import wave_index as port_wi
+from repro_torch.core import zones as port_zones
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("which", ["CONFIG", "reduced"])
+def test_gemma2_2b_fields_match(which):
+    port = gemma2_2b.CONFIG if which == "CONFIG" else gemma2_2b.reduced()
+    ref = ref_gemma.CONFIG if which == "CONFIG" else ref_gemma.reduced()
+    assert [f.name for f in dataclasses.fields(port)] == \
+        [f.name for f in dataclasses.fields(ref)]
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.layer_kinds() == ref.layer_kinds()
+
+
+def test_registry_lookups():
+    assert dataclasses.asdict(registry.SMOKE_RETRO) == \
+        dataclasses.asdict(ref_registry.SMOKE_RETRO)
+    assert registry.get_config("gemma2-2b") == gemma2_2b.CONFIG
+    assert registry.reduced_config("gemma2_2b") == gemma2_2b.reduced()
+
+
+@pytest.mark.parametrize("seq_len", [24, 100, 640, 9000, 16384, 70000])
+def test_zone_plan_and_layout_match(seq_len):
+    from repro.core import wave_index as ref_wi
+    from repro.core import zones as ref_zones
+    for port_r, ref_r in ((RetroConfig(), RefRetro()),
+                          (registry.SMOKE_RETRO, ref_registry.SMOKE_RETRO)):
+        assert port_wi.prefill_layout(seq_len, port_r) == \
+            ref_wi.prefill_layout(seq_len, ref_r)
+        assert port_wi.max_clusters(seq_len, port_r, 1024) == \
+            ref_wi.max_clusters(seq_len, ref_r, 1024)
+        assert port_wi.local_buffer_size(port_r) == \
+            ref_wi.local_buffer_size(ref_r)
+        assert tuple(port_zones.plan_zones(seq_len, port_r, 512)) == \
+            tuple(ref_zones.plan_zones(seq_len, ref_r, 512))

@@ -1,0 +1,216 @@
+"""The slice end to end on gemma2-2b ``reduced()``: chunked prefill and
+decode logits against the JAX package, the serve engine's batch invariance
+across a staging-buffer flush, and the port's independence from JAX."""
+import functools
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import gemma2_2b as ref_gemma
+from repro.core.zones import plan_zones as ref_plan_zones
+from repro.models import model as RM
+from repro.models import transformer as RT
+from repro_torch.configs import gemma2_2b
+from repro_torch.core.zones import plan_zones
+from repro_torch.interop import (params_from_numpy,
+                                 prefill_chunk_state_from_numpy,
+                                 serve_state_from_numpy)
+from repro_torch.models import model as M
+from repro_torch.models import transformer as PT
+from repro_torch.serving.engine import Request, ServeEngine
+
+torch.set_num_threads(2)
+SRC = Path(__file__).resolve().parents[1] / "src"
+TOL = dict(atol=1e-4, rtol=1e-4)
+CHUNK, MAX_CTX, LENS = 64, 320, (300, 200)
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def models():
+    ref_cfg, cfg = ref_gemma.reduced(), gemma2_2b.reduced()
+    ref_params = RM.init_params(ref_cfg, jax.random.PRNGKey(0))
+    params = params_from_numpy(_np_tree(ref_params), cfg, "cpu")
+    return ref_cfg, ref_params, cfg, params
+
+
+def _prompts():
+    rng = np.random.default_rng(0)
+    toks = np.zeros((2, MAX_CTX), np.int32)
+    for b, n in enumerate(LENS):
+        toks[b, :n] = rng.integers(0, 512, n)
+    return toks
+
+
+@pytest.fixture(scope="module")
+def ref_prefill(models):
+    """JAX chunked admission of two ragged prompts: per-chunk logits, the
+    state after chunk 0, and the finalized serve state."""
+    ref_cfg, ref_params, _, _ = models
+    toks = _prompts()
+    step = jax.jit(functools.partial(RM.apply_prefill_chunk, cfg=ref_cfg))
+    cs = RM.make_prefill_chunk_state(ref_cfg, 2, MAX_CTX, chunk=CHUNK,
+                                     gen_headroom=128)
+    logits, after0 = [], None
+    for c0 in range(0, max(LENS), CHUNK):
+        clens = np.clip(np.asarray(LENS) - c0, 0, CHUNK).astype(np.int32)
+        lg, cs = step(ref_params, batch={"tokens": jnp.asarray(
+            toks[:, c0:c0 + CHUNK])}, state=cs, chunk_lens=jnp.asarray(clens))
+        logits.append(np.asarray(lg))
+        if c0 == 0:
+            after0 = _np_tree(cs)
+    return toks, logits, after0
+
+
+def _chunk_lens(c0):
+    return torch.from_numpy(
+        np.clip(np.asarray(LENS) - c0, 0, CHUNK).astype(np.int32))
+
+
+def test_prefill_chunk_logits_match(models, ref_prefill):
+    _, _, cfg, params = models
+    toks, ref_logits, _ = ref_prefill
+    cs = M.make_prefill_chunk_state(cfg, 2, MAX_CTX, chunk=CHUNK,
+                                    gen_headroom=128, device="cpu")
+    for i, c0 in enumerate(range(0, max(LENS), CHUNK)):
+        lg, cs = M.apply_prefill_chunk(
+            params, cfg, {"tokens": torch.from_numpy(toks[:, c0:c0 + CHUNK])},
+            cs, chunk_lens=_chunk_lens(c0))
+        live = np.asarray(LENS) > c0           # rows with tokens in this chunk
+        np.testing.assert_allclose(lg.numpy()[live], ref_logits[i][live],
+                                   **TOL, err_msg=f"chunk {i}")
+
+
+def test_prefill_resumes_from_carried_state(models, ref_prefill):
+    """Hand the JAX admission state after chunk 0 to the port; its chunk 1
+    logits match the reference's."""
+    _, _, cfg, params = models
+    toks, ref_logits, after0 = ref_prefill
+    wave = dict(after0.wave._asdict())
+    wave["state"] = after0.wave.state._asdict()
+    cs = prefill_chunk_state_from_numpy(after0.cache._asdict(), wave, "cpu")
+    lg, _ = M.apply_prefill_chunk(
+        params, cfg, {"tokens": torch.from_numpy(toks[:, CHUNK:2 * CHUNK])},
+        cs, chunk_lens=_chunk_lens(CHUNK))
+    np.testing.assert_allclose(lg.numpy(), ref_logits[1], **TOL)
+
+
+def test_decode_steps_match_reference(models):
+    """Eight decode steps from the same carried-across wave state (one
+    prompt per row, finalized by the reference) with the same tokens: the
+    port's logits match ``decode_step(attn_impl="fused")``."""
+    ref_cfg, ref_params, cfg, params = models
+    toks = _prompts()[0:1, :LENS[0]]
+    cs = RM.make_prefill_chunk_state(ref_cfg, 1, LENS[0], chunk=LENS[0],
+                                     gen_headroom=128)
+    _, cs = RM.apply_prefill_chunk(ref_params, ref_cfg,
+                                   {"tokens": jnp.asarray(toks)}, cs)
+    ref_state = RM.finalize_prefill_chunk(ref_cfg, cs, total_len=LENS[0])
+    state = serve_state_from_numpy(ref_state.kv._asdict(), "cpu")
+    ref_plan = ref_plan_zones(LENS[0], ref_cfg.retro, 128)
+    plan = plan_zones(LENS[0], cfg.retro, 128)
+    dec = jax.jit(functools.partial(RT.decode_step, cfg=ref_cfg,
+                                    plan=ref_plan, attn_impl="fused"))
+    rng = np.random.default_rng(1)
+    for t in range(8):
+        tok = rng.integers(0, 512, (1,)).astype(np.int32)
+        ref_lg, ref_state = dec(ref_params, state=ref_state,
+                                token=jnp.asarray(tok))
+        lg, state = PT.decode_step(params, cfg, state, torch.from_numpy(tok),
+                                   plan=plan)
+        np.testing.assert_allclose(lg.numpy(), np.asarray(ref_lg), **TOL,
+                                   err_msg=f"step {t}")
+
+
+def _serve(cfg, params, batch):
+    rng = np.random.default_rng(2)
+    reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32), m)
+            for n, m in ((300, 150), (130, 20), (220, 40))]
+    eng = ServeEngine(cfg, params, prefill_chunk=CHUNK, max_context=MAX_CTX,
+                      gen_headroom=256, device="cpu")
+    metrics = eng.serve(reqs, batch_size=batch)
+    return reqs, metrics
+
+
+def test_engine_batch_invariant_across_flush():
+    """Untied output head so greedy tokens vary. Request 0 generates 150
+    tokens: its staging buffer (local 32 + update 128) flushes mid-run."""
+    cfg = gemma2_2b.reduced().replace(tie_embeddings=False)
+    params = M.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    solo, m1 = _serve(cfg, params, 1)
+    duo, m2 = _serve(cfg, params, 2)
+    assert m1.flushes >= 1 and m2.flushes >= 1
+    for a, b in zip(solo, duo):
+        assert len(a.out_tokens) == a.max_new_tokens
+        assert a.out_tokens == b.out_tokens
+    assert len(set(solo[0].out_tokens)) > 1
+    assert m2.tokens_out == sum(r.max_new_tokens for r in duo)
+
+
+def test_serve_launcher_runs_on_cpu(capsys):
+    """The launcher end to end; the second request outlives the per-request
+    watchdog and finishes as a timeout."""
+    from repro_torch.launch import serve
+    serve.main(["--arch", "gemma2_2b", "--reduced", "--device", "cpu",
+                "--requests", "2", "--prompt-lens", "80,60", "--new-tokens",
+                "3", "--stagger", "10", "--prefill-chunk", "32",
+                "--max-decode-steps", "6"])
+    out = capsys.readouterr().out
+    assert "served 2 requests" in out
+    assert "req 0: prompt 80, out 3," in out
+    assert "req 1: prompt 60, out 5," in out and "[timeout]" in out
+
+
+def test_default_device_needs_cuda(models):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    _, _, cfg, params = models
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.init_params(cfg)
+
+
+BLOCK_JAX = """
+import importlib, pkgutil, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith("jax.") or name == "repro" \\
+                or name.startswith("repro."):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")]
+for m in mods:
+    importlib.import_module(m)
+assert not any(k == "jax" or k.startswith(("jax.", "repro."))
+               for k in sys.modules)
+print(len(mods))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", BLOCK_JAX], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+    import re
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)\b|\brepro\.",
+                     re.MULTILINE)
+    for f in (SRC / "repro_torch").rglob("*.py"):
+        text = f.read_text()
+        # the docstrings name their reference modules as paths, never as
+        # importable dotted names
+        assert not pat.search(text), f
