@@ -3,16 +3,22 @@
     python3 chip_smoke.py
 
 1. builds every CUDA kernel of the port from ``src/repro_torch`` (nvcc,
-   sm_90a) and times the build;
+   sm_90a, one process per source, all at once) and times the build;
 2. holds the paged wave-attention kernel against its plain PyTorch twin on
    the card, at full-width gemma2-2b decode shapes and on edge cases;
+2b. holds the gathered-buffer wave-attention kernel, the block gather and
+   the k-means step against their twins on full-width synthetic cases;
 3. serves full-width gemma2-2b (bf16, random weights from a seed) through
-   ``ServeEngine`` — chunked admission, the wave index, decode through the
-   kernel and a decode-time flush — and checks the kernel launch count;
-   then checks the kernel against its twin on inputs captured from one
-   local-layer and one global-layer launch of that run;
+   ``ServeEngine(attn_impl="fused")`` — chunked admission, the wave index,
+   decode through the paged kernel and a decode-time flush — and checks the
+   kernel launch count; then checks the kernel against its twin on inputs
+   captured from one local-layer and one global-layer launch of that run;
 4. checks the reduced model's logits on the card against the same model
-   run on the CPU (plain twin).
+   run on the CPU (plain twins), for the "fused" and "pallas" impls;
+5. serves full-width gemma2-2b through ``ServeEngine(attn_impl="pallas")``
+   (the gathered-buffer kernel), checks its launch count, holds the kernel
+   and the block gather against their twins on captured launches, and
+   compares the three impls' attention on the state the run leaves.
 
 Prints the card's name and power limit, one JSON line of kernel results and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
@@ -28,10 +34,24 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-KERNEL_SRC = "src/repro_torch/kernels/wave_attention/csrc/paged_wave_attention.cu"
-KERNEL_REPLACES = "src/repro/kernels/wave_attention/kernel.py:307"
+# kernel -> (CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "paged_wave_attention": (
+        "src/repro_torch/kernels/wave_attention/csrc/paged_wave_attention.cu",
+        "src/repro/kernels/wave_attention/kernel.py:307"),
+    "wave_attention_merge": (
+        "src/repro_torch/kernels/wave_attention/csrc/wave_attention.cu",
+        "src/repro/kernels/wave_attention/kernel.py:91"),
+    "block_gather": (
+        "src/repro_torch/kernels/gather/csrc/block_gather.cu",
+        "src/repro/kernels/gather/kernel.py:22"),
+    "kmeans_step": (
+        "src/repro_torch/kernels/kmeans/csrc/kmeans_step.cu",
+        "src/repro/kernels/kmeans/kernel.py:36"),
+}
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOPS = 67e12                  # H100 SXM, f32 outside the tensor cores
+SPIN_CYCLES = 4_000_000            # ~2 ms at the H100's 1.98 GHz boost clock
 
 
 def log(msg):
@@ -42,12 +62,14 @@ def log(msg):
 # kernel vs twin
 # ---------------------------------------------------------------------------
 
-def compare(name, args, softcap, *, time_it=False):
-    """Kernel vs twin on the card. Returns a result dict; raises on breach."""
+def compare(name, args, softcap, *, op="paged_wave_attention", time_it=False):
+    """An attention kernel (``op``, a wrapper in the wave-attention ops) vs
+    its twin on the card. Returns a result dict; raises on breach."""
     import torch
     from repro_torch.kernels.wave_attention import ops
-    out = ops.paged_wave_attention(*args, softcap=softcap)
-    ref = ops.paged_wave_attention_plain(*args, softcap=softcap)
+    kern, plain = getattr(ops, op), getattr(ops, op + "_plain")
+    out = kern(*args, softcap=softcap)
+    ref = plain(*args, softcap=softcap)
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
         raise AssertionError(f"{name}: kernel output not finite")
@@ -55,10 +77,8 @@ def compare(name, args, softcap, *, time_it=False):
     tol = 2e-5 * (1.0 + ref.abs().max().item())
     res = dict(case=name, max_abs_err=err, tol=tol)
     if time_it:
-        res["ms"] = time_ms(lambda: ops.paged_wave_attention(
-            *args, softcap=softcap))
-        res["plain_ms"] = time_ms(lambda: ops.paged_wave_attention_plain(
-            *args, softcap=softcap))
+        res["ms"] = time_ms(lambda: kern(*args, softcap=softcap))
+        res["plain_ms"] = time_ms(lambda: plain(*args, softcap=softcap))
     log(f"  {name}: max|d| {err:.3e} tol {tol:.3e}"
         + (f"  kernel {res['ms']:.4f} ms  twin {res['plain_ms']:.4f} ms"
            if time_it else ""))
@@ -70,7 +90,11 @@ def compare(name, args, softcap, *, time_it=False):
 
 def time_ms(fn, reps=20):
     """Mean device time of ``fn`` over ``reps`` calls, each timed with CUDA
-    events after writing 128 MiB so the call finds L2 cold, as in decode."""
+    events after writing 128 MiB so the call finds L2 cold, as in decode.
+    The card then spins for ~2 ms (``torch.cuda._sleep``) while the host
+    enqueues the call, so a call whose device work is shorter than its host
+    work (a small kernel behind a ctypes wrapper) is timed on the device and
+    not at the host's pace."""
     import torch
     scrub = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
     for _ in range(3):
@@ -78,6 +102,7 @@ def time_ms(fn, reps=20):
     total = 0.0
     for _ in range(reps):
         scrub.fill_(1.0)
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -123,9 +148,170 @@ def kernel_bound(args):
               + a["qg"].numel() * 4 + 2 * B * H * G * E * 4
               + B * H * E * hd * 4 + B * H * G * hd * 4)   # out
     flops = n_tok * 4 * G * hd + B * H * G * E * 2 * hd
+    return bound(nbytes, flops)
+
+
+def bound(nbytes, flops):
+    """(least time in ms on an H100, "bytes" or "operations")."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def merge_bound(args):
+    """Gathered-buffer merge: the K/V rows that pass the mask, the mask, q,
+    the estimation inputs and the output; f32 flops over those rows and the
+    estimation zone."""
+    qg, k, _, valid, est_logit, cs_e, vs_e = args
+    B, H, G, hd = qg.shape
+    E = vs_e.shape[2]
+    n_tok = int(valid.sum().item())
+    nbytes = (n_tok * 2 * hd * k.element_size()
+              + _nbytes(valid, qg, est_logit, cs_e, vs_e)
+              + B * H * G * hd * 4)                             # out
+    return bound(nbytes, n_tok * 4 * G * hd + B * H * G * E * 2 * hd)
+
+
+def gather_bound(idx, k_store):
+    """Block gather: read and write the r (cap, hd) blocks of K and V."""
+    B, H, r = idx.shape
+    blk = k_store.shape[3] * k_store.shape[4] * k_store.element_size()
+    return bound(2 * 2 * B * H * r * blk + _nbytes(idx), 0)
+
+
+def kmeans_bound(x, cent):
+    """One k-means step: the similarity (2 n k d), the sums (n d adds) and
+    the normalisation (3 k d) per segment, in f32; x and the centroids read,
+    sums, counts and assignments written."""
+    S, n, d = x.shape
+    k = cent.shape[1]
+    flops = S * (2 * n * k * d + n * d + 3 * k * d)
+    return bound(_nbytes(x, cent) + S * (k * d + k + n) * 4, flops)
+
+
+def merge_cases():
+    """(name, kwargs of ``ref.random_merge_inputs``, softcap) of the
+    gathered-buffer merge's synthetic cases: gemma2-2b decode shapes at a
+    16384-token context (T 1668, E 256), ragged masks."""
+    cap = 50.0
+    return [
+        ("merge_full_width_bf16", {}, cap),
+        ("merge_f32", dict(dtype="float32", seed=1), cap),
+        ("merge_softcap_off", dict(seed=2), None),
+        ("merge_all_dead_estimation", dict(dead_frac=1.0, seed=3), cap),
+        ("merge_empty_rows", dict(keep_min=0.0, seed=4), cap),
+        ("merge_G8", dict(G=8, H=2, seed=5), cap),
+    ]
+
+
+def gather_case(device="cuda", seed=0):
+    """gemma2-2b's bf16 stores (2, 4, M 1280, cap 32, hd 256), r 18 ids per
+    row with repeats; kernel vs twin, bit-exact."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    ks, vs = (torch.randn((2, 4, 1280, 32, 256), generator=g, device=device)
+              .to(torch.bfloat16) for _ in range(2))
+    idx = torch.randint(0, 1280, (2, 4, 18), generator=g, device=device,
+                        dtype=torch.int32)
+    idx[:, :, 1] = idx[:, :, 0]                          # repeated ids
+    res = check_gather("gather_full_width_bf16", idx, ks, vs)
+    del ks, vs
+    return res
+
+
+def check_gather(name, idx, k_store, v_store, *, time_it=False):
+    """Drive the op entry point ``block_gather_op`` once (its launch count
+    set to 0 just before and read just after), then hold its output against
+    the twin (``torch.gather``), bit-exact."""
+    import torch
+    from repro_torch.kernels.gather import ops as gops
+    gops.block_gather_op.launches = 0
+    ko, vo = gops.block_gather_op(idx, k_store, v_store)
+    launches = gops.block_gather_op.launches
+    kr, vr = gops.block_gather_plain(idx, k_store, v_store)
+    torch.cuda.synchronize()
+    err = max((ko.float() - kr.float()).abs().max().item(),
+              (vo.float() - vr.float()).abs().max().item())
+    res = dict(case=name, max_abs_err=err, tol=0.0, launches=launches)
+    if time_it:
+        i = idx.long()[..., None, None].expand(idx.shape + k_store.shape[3:])
+        res["ms"] = time_ms(lambda: gops.block_gather_op(idx, k_store,
+                                                         v_store))
+        res["plain_ms"] = time_ms(lambda: gops.block_gather_plain(
+            idx, k_store, v_store))
+        res["library_ms"] = time_ms(lambda: (torch.gather(k_store, 2, i),
+                                             torch.gather(v_store, 2, i)))
+        res["bound_ms"], res["bound_by"] = gather_bound(idx, k_store)
+    log(f"  {name}: bit-exact {err == 0.0}"
+        + (f"  kernel {res['ms']:.4f} ms  twin {res['plain_ms']:.4f} ms  "
+           f"torch.gather {res['library_ms']:.4f} ms  bound "
+           f"{res['bound_ms']:.4f} ms" if time_it else ""))
+    if launches != 1 or not (torch.equal(ko, kr) and torch.equal(vo, vr)):
+        raise AssertionError(f"{name}: {launches} launches, block gather "
+                             f"bit-exact {err == 0.0}")
+    return res
+
+
+def kmeans_case(S=8, n=8192, d=256, k=512, iters=10, seed=0,
+                device="cuda"):
+    """The k-means op at the port's prefill segment (n 8192), k 512, d 256.
+    Drives the op entry point ``segmented_kmeans_op`` once (launch count
+    set to 0 just before and read just after) and checks its assignments
+    against the twin's on its final centroids; then runs the same loop one
+    step at a time, each kernel step held against the twin on the same
+    centroids (``ref.kmeans_step_check``), the loop going on from the
+    kernel's own update."""
+    import torch
+    from repro_torch.kernels.kmeans import ops as kops
+    from repro_torch.kernels.kmeans.ref import (kmeans_step_check,
+                                                kmeans_update_ref)
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((S, n, d), generator=g, device=device)
+    cent = x[:, ::n // k][:, :k].contiguous()
+    cent0 = cent
+    kops.kmeans_step.launches = 0
+    cent_op, assign_op = kops.segmented_kmeans_op(x, cent0, iters=iters)
+    launches = kops.kmeans_step.launches
+    chk = kmeans_step_check(x, cent_op, *kmeans_update_ref(x, assign_op, k),
+                            assign_op)
+    if launches != iters + 1 or not torch.isfinite(cent_op).all() \
+            or not chk["ok"]:
+        raise AssertionError(f"segmented_kmeans_op: {launches} launches, "
+                             f"{chk}")
+    worst, mism = None, 0
+    for it in range(iters + 1):
+        sums, counts, assign = kops.kmeans_step(x, cent)
+        torch.cuda.synchronize()
+        chk = kmeans_step_check(x, cent, sums, counts, assign)
+        mism += chk["mismatches"]
+        if not chk["ok"]:
+            raise AssertionError(f"kmeans step {it}: {chk}")
+        ratio = chk["sums_err_at_worst"] / max(chk["sums_tol_at_worst"],
+                                               1e-30)
+        if worst is None or ratio > worst[0]:
+            worst = (ratio, it, chk)
+        cent = torch.where(counts[..., None] > 0,
+                           sums / torch.clamp(counts[..., None], min=1.0),
+                           cent)
+    _, it, chk = worst
+    res = dict(case=f"kmeans_step_{it}", max_abs_err=chk["sums_err_at_worst"],
+               tol=chk["sums_tol_at_worst"], launches=launches,
+               sums_max_abs_err=chk["sums_max_abs_err"],
+               assign_near_tie_mismatches=mism)
+    res["ms"] = time_ms(lambda: kops.kmeans_step(x, cent0))
+    res["plain_ms"] = time_ms(lambda: kops.kmeans_step_plain(x, cent0))
+    res["bound_ms"], res["bound_by"] = kmeans_bound(x, cent0)
+    log(f"  segmented_kmeans_op: {launches} launches; kmeans ({S}, {n}, "
+        f"{d}) k {k}, {iters} steps + final assign: "
+        f"sums worst {res['max_abs_err']:.3e} vs tol {res['tol']:.3e} "
+        f"(step {it}), {mism} assignments differ, all at near-ties; kernel "
+        f"{res['ms']:.4f} ms  twin {res['plain_ms']:.4f} ms  bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+    return res
 
 
 def edge_cases(full=True):
@@ -155,31 +341,77 @@ def edge_cases(full=True):
 # ---------------------------------------------------------------------------
 
 class Capture:
-    """Stands in for the ops module inside ``core.attention`` during the
-    serve run: forwards every call to the real wrapper and keeps a clone of
-    the arguments of one local-layer and one global-layer launch, taken when
-    every row holds a real context."""
+    """Stands in for the ops module inside ``core.attention`` during a serve
+    run: forwards every call to the real wrapper and keeps a clone of the
+    arguments of one local-layer and one global-layer launch, taken when
+    every row holds a real context (paged kernel: every row at position
+    ``min_pos`` or later; gathered-buffer merge: every row's mask admits a
+    token, which an empty slot's never does). For the merge's global-layer
+    launch it also keeps the ids and stores its execution buffer was
+    gathered from (``gather`` stands in for ``_gather_clusters``)."""
 
-    def __init__(self, ops, n_layers, kinds, min_pos):
+    def __init__(self, ops, attention, n_layers, kinds, min_pos):
         self.ops, self.n_layers, self.kinds = ops, n_layers, kinds
         self.min_pos = min_pos
         self.rowb = ops.ARG_NAMES.index("rowb")
+        self.real_gather = attention._gather_clusters
+        self.last_gather = None
         self.calls = 0
         self.taken = {}
 
-    def paged_wave_attention(self, *args, softcap=None):
+    def _kind(self):
         layer = self.calls % self.n_layers
         self.calls += 1
-        kind = self.kinds[layer]
+        return layer, self.kinds[layer]
+
+    def gather(self, state, idx):
+        self.last_gather = (state, idx)
+        return self.real_gather(state, idx)
+
+    def paged_wave_attention(self, *args, softcap=None):
+        layer, kind = self._kind()
         if kind not in self.taken and \
                 int(args[self.rowb][..., 1].min()) >= self.min_pos:
             self.taken[kind] = (layer, [a.clone() for a in args], softcap)
         return self.ops.paged_wave_attention(*args, softcap=softcap)
 
+    def wave_attention_merge(self, *args, softcap=None):
+        layer, kind = self._kind()
+        if kind not in self.taken and bool(args[3].any(-1).all()):
+            st, idx = self.last_gather
+            blocks = (idx.clone(), st.k_store.clone(), st.v_store.clone()) \
+                if kind == "g" else None
+            self.taken[kind] = (layer, [a.clone() for a in args], softcap,
+                                blocks)
+        return self.ops.wave_attention_merge(*args, softcap=softcap)
 
-def serve_main_path(cfg, prompt_lens, new_tokens, *, chunk=256, batch=2,
-                    device="cuda", seed=0, min_capture_pos=4096):
-    """Drive the port's main path: ServeEngine with chunked admission."""
+
+def reset_launches():
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def launch_counters():
+    from repro_torch.kernels.gather import ops as gops
+    from repro_torch.kernels.kmeans import ops as kops
+    from repro_torch.kernels.wave_attention import ops
+    return dict(paged_wave_attention=ops.paged_wave_attention,
+                wave_attention_merge=ops.wave_attention_merge,
+                block_gather=gops.block_gather_op,
+                kmeans_step=kops.kmeans_step)
+
+
+IMPL_KERNEL = {"fused": "paged_wave_attention",
+               "pallas": "wave_attention_merge"}
+
+
+def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl, chunk=256,
+                    batch=2, device="cuda", seed=0, min_capture_pos=4096,
+                    want_flush=True):
+    """Drive the port's main path: ServeEngine with chunked admission and
+    decode through ``attn_impl`` ("fused" or "pallas"); every kernel's
+    launch count is set to 0 just before and read just after."""
     import numpy as np
     import torch
     from repro_torch.core import attention
@@ -198,14 +430,19 @@ def serve_main_path(cfg, prompt_lens, new_tokens, *, chunk=256, batch=2,
     rng = np.random.default_rng(seed)
     reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32), m)
             for n, m in zip(prompt_lens, new_tokens)]
-    engine = ServeEngine(cfg, params, prefill_chunk=chunk, device=device)
-    cap = Capture(ops, cfg.n_layers, cfg.layer_kinds(), min_capture_pos)
+    engine = ServeEngine(cfg, params, prefill_chunk=chunk, device=device,
+                         attn_impl=attn_impl)
+    if engine.attn_impl != attn_impl:
+        raise AssertionError(f"engine resolved {engine.attn_impl}")
+    cap = Capture(ops, attention, cfg.n_layers, cfg.layer_kinds(),
+                  min_capture_pos)
     real_ops = attention.wa_ops
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    ops.paged_wave_attention.launches = 0          # count the main path only
+    reset_launches()                                # count the main path only
     attention.wa_ops = cap
+    attention._gather_clusters = cap.gather
     try:
         t0 = time.perf_counter()
         m = engine.serve(reqs, batch_size=batch)
@@ -214,14 +451,17 @@ def serve_main_path(cfg, prompt_lens, new_tokens, *, chunk=256, batch=2,
         wall = time.perf_counter() - t0
     finally:
         attention.wa_ops = real_ops
-    launches = ops.paged_wave_attention.launches
+        attention._gather_clusters = cap.real_gather
+    counts = {k: fn.launches for k, fn in launch_counters().items()}
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
 
     # --- what came out ---
-    if launches != cfg.n_layers * m.steps:
-        raise AssertionError(f"{launches} kernel launches for {m.steps} "
-                             f"decode steps x {cfg.n_layers} layers")
-    if m.flushes < 1:
+    want = {k: 0 for k in counts}
+    want[IMPL_KERNEL[attn_impl]] = cfg.n_layers * m.steps
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts} for {m.steps} decode "
+                             f"steps x {cfg.n_layers} layers: want {want}")
+    if want_flush and m.flushes < 1:
         raise AssertionError("no decode-time flush ran")
     retro = cfg.retro
     kv = engine.last_state.kv
@@ -248,14 +488,67 @@ def serve_main_path(cfg, prompt_lens, new_tokens, *, chunk=256, batch=2,
                 raise AssertionError(
                     f"slot {slot}: length {got_len} (want {want_len}), "
                     f"clusters {got_cl} (want {want_clusters})")
-    res = dict(wall_s=wall, steps=m.steps, launches=launches,
+    res = dict(attn_impl=attn_impl, wall_s=wall, steps=m.steps,
+               launches=counts[IMPL_KERNEL[attn_impl]], all_launches=counts,
                flushes=m.flushes, tokens_out=m.tokens_out,
                prefill_tokens=m.prefill_tokens, prefill_s=m.prefill_s,
                prefill_tps=m.prefill_tps, decode_s=m.decode_s,
                decode_tps=m.decode_tps, ttft_s=[r.ttft_s for r in reqs],
                itl_p50_ms=m.itl_p50_s * 1e3, itl_p99_ms=m.itl_p99_s * 1e3,
                peak_mem_gib=peak / 2**30)
+    log(f"  {attn_impl}: decode steps {m.steps}, launches {counts} "
+        f"(= {cfg.n_layers} x steps of {IMPL_KERNEL[attn_impl]}), flushes "
+        f"{m.flushes}")
+    log(f"  TTFT s {['%.3f' % t for t in res['ttft_s']]}; prefill "
+        f"{res['prefill_tps']:.1f} tok/s; decode {res['decode_tps']:.2f} "
+        f"tok/s; ITL p50/p99 {res['itl_p50_ms']:.2f}/"
+        f"{res['itl_p99_ms']:.2f} ms; peak mem "
+        f"{res['peak_mem_gib']:.2f} GiB; wall {wall:.1f} s")
+    if set(cap.taken) != {"l", "g"}:
+        raise AssertionError(f"captured launches {sorted(cap.taken)}")
     return res, cap.taken, engine
+
+
+def compare_impls(engine, layer, max_ctx, seed=7):
+    """The three decode-attention impls on clones of one layer's state as
+    the serve run left it, with one random query: "pallas" vs "fused" in f32
+    (they differ only in the order of the f32 sums), "jnp" vs "pallas"
+    within the reference kernel test's bf16 tolerance (atol = rtol = 3e-2,
+    tests/test_kernels.py:40): "jnp" rounds q and p to the bf16 stores."""
+    import torch
+    from repro_torch.core import attention
+    from repro_torch.core.wave_index import WaveState
+    from repro_torch.core.zones import plan_zones
+    cfg, st = engine.cfg, engine.last_state.kv[layer]
+    plan = plan_zones(max_ctx, cfg.retro, engine.gen_headroom)
+    B, dev = st.length.shape[0], st.length.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, cfg.n_heads, cfg.head_dim), generator=g,
+                    device=dev).to(torch.bfloat16).float()
+    outs = {}
+    for impl in ("fused", "pallas", "jnp"):
+        clone = WaveState(*(t.clone() for t in st))
+        outs[impl] = attention.wave_attention_decode(
+            q, clone, cfg.retro, plan, window=engine.params["window"][layer],
+            softcap=cfg.attn.softcap, impl=impl).out
+        del clone
+    f, p, j = outs["fused"], outs["pallas"], outs["jnp"]
+    res = dict(layer=layer,
+               pallas_vs_fused=(p - f).abs().max().item(),
+               pallas_vs_fused_tol=2e-5 * (1 + f.abs().max().item()),
+               jnp_vs_pallas=(j - p).abs().max().item(),
+               jnp_vs_pallas_excess=((j - p).abs() - 3e-2 * (1 + p.abs()))
+               .max().item())
+    log(f"  impls on layer {layer}'s state: |pallas - fused| "
+        f"{res['pallas_vs_fused']:.3e} (tol {res['pallas_vs_fused_tol']:.3e}); "
+        f"|jnp - pallas| {res['jnp_vs_pallas']:.3e} (tol 3e-2 (1 + |pallas|))")
+    if not all(torch.isfinite(o).all() for o in outs.values()):
+        raise AssertionError("an impl's attention is not finite")
+    if not res["pallas_vs_fused"] <= res["pallas_vs_fused_tol"]:
+        raise AssertionError(f"pallas vs fused: {res}")
+    if not res["jnp_vs_pallas_excess"] <= 0:
+        raise AssertionError(f"jnp vs pallas: {res}")
+    return res
 
 
 def decode_breakdown(engine, max_ctx, steps=8):
@@ -275,7 +568,7 @@ def decode_breakdown(engine, max_ctx, steps=8):
 
     def step(st):
         lg, st = M.apply_decode(engine.params, cfg, st, tok, plan=plan,
-                                active=act)
+                                active=act, attn_impl=engine.attn_impl)
         return lg.argmax(-1), st
 
     with torch.inference_mode():
@@ -339,9 +632,10 @@ def _leaves(tree):
         yield tree
 
 
-def reduced_across_devices(seed=0, device="cuda"):
+def reduced_across_devices(attn_impl, seed=0, device="cuda"):
     """The reduced model on the card (kernel) vs on the CPU (twin): chunked
-    prefill of two ragged prompts then six decode steps; logits agree."""
+    prefill of two ragged prompts then six decode steps through
+    ``attn_impl``; logits agree."""
     import numpy as np
     import torch
     from repro_torch.configs.gemma2_2b import reduced
@@ -376,12 +670,13 @@ def reduced_across_devices(seed=0, device="cuda"):
             st = M.finalize_prefill_chunk(cfg, row, total_len=int(lens[b]))
             for t in range(6):
                 lg, st = M.apply_decode(params, cfg, st, torch.from_numpy(
-                    steps[t, b:b + 1]).to(dev), plan=plan)
+                    steps[t, b:b + 1]).to(dev), plan=plan,
+                    attn_impl=attn_impl)
                 logits.append(lg.float().cpu())
         runs[dev] = torch.stack(logits)
     err = (runs[device] - runs["cpu"]).abs().max().item()
-    log(f"  reduced gemma2-2b, card vs cpu logits: max|d| {err:.3e} "
-        f"(tol 1e-3)")
+    log(f"  reduced gemma2-2b ({attn_impl}), card vs cpu logits: max|d| "
+        f"{err:.3e} (tol 1e-3)")
     if not torch.isfinite(runs[device]).all() or err > 1e-3:
         raise AssertionError(f"reduced model disagrees across devices: {err}")
     return err
@@ -398,7 +693,7 @@ def _row_cp(cp, b):
 def main(argv=None):
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--json", type=Path, default=None,
-                    help="also write every result (cases, serve, decode "
+                    help="also write every result (cases, serve runs, decode "
                          "breakdown) to this file")
     opts = ap.parse_args(argv)
     import torch
@@ -408,7 +703,8 @@ def main(argv=None):
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.gemma2_2b import CONFIG
     from repro_torch.kernels import build
-    from repro_torch.kernels.wave_attention.ref import random_decode_inputs
+    from repro_torch.kernels.wave_attention.ref import (random_decode_inputs,
+                                                       random_merge_inputs)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -423,7 +719,7 @@ def main(argv=None):
     # ---- phase 1: build ----------------------------------------------------
     log("phase 1: build")
     t0 = time.perf_counter()
-    recs = build.build([ROOT / KERNEL_SRC])
+    recs = build.build([ROOT / src for src, _ in KERNELS.values()])
     build_s = time.perf_counter() - t0
     for rec in recs:
         log(f"  {Path(rec['source']).name}: {rec['seconds']:.1f} s")
@@ -432,31 +728,35 @@ def main(argv=None):
                 log("    " + line.strip())
     log(f"  build total {build_s:.1f} s")
 
-    # ---- phase 2: kernel vs twin on synthetic full-width cases -------------
-    log("phase 2: kernel vs plain twin (full-width decode shapes)")
-    results = []
+    # ---- phase 2: paged kernel vs twin on synthetic full-width cases -------
+    log("phase 2: paged kernel vs plain twin (full-width decode shapes)")
+    results = {k: [] for k in KERNELS}
     for name, kw, softcap in edge_cases():
         args = random_decode_inputs(device="cuda", **kw)
-        results.append(compare(name, args, softcap,
-                               time_it=name == "full_width_global_bf16"))
+        results["paged_wave_attention"].append(compare(
+            name, args, softcap, time_it=name == "full_width_global_bf16"))
         del args
     torch.cuda.empty_cache()
 
-    # ---- phase 3: serve full-width gemma2-2b --------------------------------
-    log("phase 3: serve gemma2-2b at full width (bf16, random weights)")
+    # ---- phase 2b: the other kernels vs their twins --------------------------
+    log("phase 2b: gathered-buffer merge, block gather, k-means step vs twins")
+    for name, kw, softcap in merge_cases():
+        args = random_merge_inputs(device="cuda", **kw)
+        results["wave_attention_merge"].append(compare(
+            name, args, softcap, op="wave_attention_merge",
+            time_it=name == "merge_full_width_bf16"))
+        del args
+    results["block_gather"].append(gather_case())
+    kmeans = kmeans_case()
+    results["kmeans_step"].append(kmeans)
+    torch.cuda.empty_cache()
+
+    # ---- phase 3: serve full-width gemma2-2b through "fused" ---------------
+    log("phase 3: serve gemma2-2b at full width through attn_impl='fused' "
+        "(bf16, random weights)")
     prompt_lens = (16384, 12288, 9000, 16384)
-    new_tokens = (1100, 48, 32, 64)
-    serve, taken, engine = serve_main_path(CONFIG, prompt_lens, new_tokens)
-    launches = serve["launches"]
-    log(f"  decode steps {serve['steps']}, kernel launches {launches} "
-        f"(= {CONFIG.n_layers} x steps), flushes {serve['flushes']}")
-    log(f"  TTFT s {['%.3f' % t for t in serve['ttft_s']]}; prefill "
-        f"{serve['prefill_tps']:.1f} tok/s; decode {serve['decode_tps']:.2f} "
-        f"tok/s; ITL p50/p99 {serve['itl_p50_ms']:.2f}/"
-        f"{serve['itl_p99_ms']:.2f} ms; peak mem "
-        f"{serve['peak_mem_gib']:.2f} GiB; wall {serve['wall_s']:.1f} s")
-    if set(taken) != {"l", "g"}:
-        raise AssertionError(f"captured launches {sorted(taken)}")
+    serve, taken, engine = serve_main_path(
+        CONFIG, prompt_lens, (1100, 48, 32, 64), attn_impl="fused")
     main_path = {}
     for kind, label in (("l", "captured_local_layer"),
                         ("g", "captured_global_layer")):
@@ -465,7 +765,7 @@ def main(argv=None):
         res["bound_ms"], res["bound_by"] = kernel_bound(args)
         log(f"    bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
         main_path[kind] = res
-        results.append(res)
+        results["paged_wave_attention"].append(res)
     del taken
     log("  decode-step breakdown (after the run, both slots decoding)")
     breakdown = decode_breakdown(engine, max(prompt_lens))
@@ -474,27 +774,65 @@ def main(argv=None):
 
     # ---- phase 4: reduced model, card vs cpu --------------------------------
     log("phase 4: reduced model on the card vs the CPU")
-    red_err = reduced_across_devices()
+    red_err = {impl: reduced_across_devices(impl)
+               for impl in ("fused", "pallas")}
 
-    # the kernel line: times and bound at the main path's global-layer
-    # launch; the error of the case nearest its tolerance, beside that tol
-    g = main_path["g"]
-    worst = max(results, key=lambda r: r["max_abs_err"] / r["tol"])
-    kern = dict(name="paged_wave_attention", route="cuda", source=KERNEL_SRC,
-                replaces=KERNEL_REPLACES, launches=launches,
-                max_abs_err=worst["max_abs_err"],
-                max_err=worst["max_abs_err"], tol=worst["tol"],
-                worst_case=worst["case"],
-                ms=g["ms"], kernel_ms=g["ms"], plain_ms=g["plain_ms"],
-                bound_ms=g["bound_ms"], bound_by=g["bound_by"],
-                library_ms=None)
+    # ---- phase 5: serve full-width gemma2-2b through "pallas" --------------
+    log("phase 5: serve gemma2-2b at full width through attn_impl='pallas'")
+    prompt_lens5 = (16384, 9000)
+    serve5, taken5, engine5 = serve_main_path(
+        CONFIG, prompt_lens5, (64, 32), attn_impl="pallas", want_flush=False)
+    merge_path = {}
+    for kind, label in (("l", "merge_captured_local_layer"),
+                        ("g", "merge_captured_global_layer")):
+        layer, args, softcap, _ = taken5[kind]
+        res = compare(f"{label}_{layer}", args, softcap,
+                      op="wave_attention_merge", time_it=True)
+        res["bound_ms"], res["bound_by"] = merge_bound(args)
+        log(f"    bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+        merge_path[kind] = res
+        results["wave_attention_merge"].append(res)
+    g_layer, _, _, (idx, ks, vs) = taken5["g"]
+    gather = check_gather(f"gather_captured_global_layer_{g_layer}",
+                          idx.to(torch.int32), ks, vs, time_it=True)
+    results["block_gather"].append(gather)
+    del taken5, idx, ks, vs
+    impls = compare_impls(engine5, g_layer, max(prompt_lens5))
+    del engine5
+    torch.cuda.empty_cache()
+
+    # the kernel line: launches on the path that runs the kernel (the serve
+    # run of its impl; for the two kernels no serving path calls, one call
+    # of their op entry point); times and bound at that path's captured
+    # global-layer launch (k-means: the full-width step); the error of the
+    # case nearest its tolerance, beside that tolerance
+    timed = dict(paged_wave_attention=main_path["g"],
+                 wave_attention_merge=merge_path["g"], block_gather=gather,
+                 kmeans_step=kmeans)
+    launches = dict(paged_wave_attention=serve["launches"],
+                    wave_attention_merge=serve5["launches"],
+                    block_gather=gather["launches"],
+                    kmeans_step=kmeans["launches"])
+    kernels = []
+    for name, (src, replaces) in KERNELS.items():
+        t = timed[name]
+        worst = max(results[name],
+                    key=lambda r: r["max_abs_err"] / max(r["tol"], 1e-30))
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches[name],
+            max_abs_err=worst["max_abs_err"], max_err=worst["max_abs_err"],
+            tol=worst["tol"], worst_case=worst["case"], ms=t["ms"],
+            kernel_ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t.get("library_ms")))
     if opts.json is not None:
         opts.json.parent.mkdir(parents=True, exist_ok=True)
         opts.json.write_text(json.dumps(dict(
             card=card, build_s=build_s, cases=results, serve=serve,
-            decode_breakdown=breakdown,
-            reduced_card_vs_cpu_err=red_err, kernels=[kern]), indent=1))
-    log(json.dumps({"kernels": [kern]}))
+            decode_breakdown=breakdown, reduced_card_vs_cpu_err=red_err,
+            serve_pallas=serve5, impls=impls, kernels=kernels), indent=1))
+    log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

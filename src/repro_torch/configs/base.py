@@ -2,8 +2,9 @@
 
 Port of ``repro/configs/base.py`` (dataclasses only, no JAX). Field names,
 defaults and derived methods are kept identical so a test can compare the
-two packages field by field. The port has one decode-attention path (the
-paged kernel), so ``attn_impl`` is kept only for parity of the dataclass.
+two packages field by field. ``attn_impl`` is the default decode-attention
+implementation ("jnp", "fused" or "pallas"), which engines and launchers may
+override per run; ``offload`` and the cache fields are not read yet.
 """
 from __future__ import annotations
 

@@ -1,12 +1,20 @@
 """Tripartite wave attention (paper Sec. 4.2) — decode-step attention.
 
-Port of ``repro/core/attention.py``, fused (``attn_impl="fused"``) branch
-only: ranking and the estimation zone run in plain PyTorch on the meta
-index; the steady zone, the retrieved clusters and the estimation fold run
-in the paged wave-attention kernel (``kernels.wave_attention``). The
-execution-buffer merge ("jnp"), the gathered kernel ("pallas"),
-``return_parts``, the degraded-decode cover and ``full_attention_decode``
-are not ported yet.
+Port of ``repro/core/attention.py``. Ranking and the estimation zone run in
+plain PyTorch on the meta index; the merge has the reference's three
+implementations (``attn_impl``):
+
+* ``"jnp"`` (the default): the execution buffer — sink, local buffer and the
+  retrieved clusters gathered and concatenated — merged in plain PyTorch
+  with the reference's cast points (``tripartite_merge_jnp``);
+* ``"pallas"``: the same execution buffer merged by the gathered-buffer
+  kernel (``kernels.wave_attention`` ``wave_attention_merge``);
+* ``"fused"``: the zones handed unconcatenated to the paged kernel, which
+  reads the retrieved clusters in place.
+
+``return_parts``, ``include_steady``, ``kv_src`` and the degraded-decode
+``valid``/``cover`` operands (sharding and offload) and
+``full_attention_decode`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -55,7 +63,7 @@ def rank_clusters(q_group, state: WaveState, plan: ZonePlan,
 
 def _take(a, idx):
     """take_along_axis on the cluster axis 2: a (B,H,M,...), idx (B,H,n)."""
-    idx = idx.reshape(idx.shape + (1,) * (a.ndim - 3))
+    idx = idx.long().reshape(idx.shape + (1,) * (a.ndim - 3))
     return torch.gather(a, 2, idx.expand(idx.shape[:3] + a.shape[3:]))
 
 
@@ -109,6 +117,23 @@ def _local_positions(state: WaveState):
                        torch.full_like(local_pos, -1))
 
 
+ATTN_IMPLS = ("jnp", "fused", "pallas")
+
+
+def resolve_attn_impl(impl: Optional[str]) -> str:
+    """Normalize an attention-impl selection: ``None`` -> "jnp"."""
+    impl = impl or "jnp"
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn impl {impl!r}; expected {ATTN_IMPLS}")
+    return impl
+
+
+def _gather_clusters(state: WaveState, idx):
+    """Gather cluster blocks. idx: (B, Hkv, r) -> stores (B, Hkv, r, cap, ...)."""
+    return (_take(state.k_store, idx), _take(state.v_store, idx),
+            _take(state.pos_store, idx))
+
+
 def _fused_wave_attention(qg, state: WaveState, idx_r, est_logit, cs_e, vs_e,
                           *, window, softcap):
     """Hand the raw zones to the paged kernel: sink -> local buffer -> the r
@@ -159,36 +184,134 @@ def wave_decode_rank(qg, state: WaveState, retro: RetroConfig, plan: ZonePlan,
     return idx_r, est_logit, cs_e, vs_e
 
 
+def _not_ported(*, kv_src, include_steady, return_parts, valid, cover):
+    """Raise on the reference's hooks for offload (``kv_src``, ``valid``,
+    ``cover``) and sharded retrieval (``include_steady``, ``return_parts``)."""
+    given = dict(kv_src=kv_src is not None,
+                 include_steady=include_steady is not True,
+                 return_parts=bool(return_parts), valid=valid is not None,
+                 cover=cover is not None)
+    given = [k for k, v in given.items() if v]
+    if given:
+        raise NotImplementedError(f"{', '.join(given)}: not ported yet")
+
+
 def wave_attention_attend(q, state: WaveState, retro: RetroConfig,
                           plan: ZonePlan, idx, est_logit, cs_e, vs_e, *,
-                          window: Optional[float] = None,
-                          softcap: Optional[float] = None) -> WaveAttnOut:
+                          kv_src=None, window: Optional[float] = None,
+                          softcap: Optional[float] = None, impl: str = "jnp",
+                          include_steady=True, return_parts: bool = False,
+                          valid=None, cover=None) -> WaveAttnOut:
     """Data-plane half: exact attention over the steady zone and the
     ``idx``-addressed clusters, merged with the estimation zone."""
+    _not_ported(kv_src=kv_src, include_steady=include_steady,
+                return_parts=return_parts, valid=valid, cover=cover)
     B, Hq, hd = q.shape
     Hkv = state.centroid.shape[1]
     qg = q.reshape(B, Hkv, Hq // Hkv, hd)
-    out = _fused_wave_attention(qg, state, idx, est_logit, cs_e, vs_e,
-                                window=window, softcap=softcap)
+    impl = resolve_attn_impl(impl)
+    if impl == "fused":
+        out = _fused_wave_attention(qg, state, idx, est_logit, cs_e, vs_e,
+                                    window=window, softcap=softcap)
+        return WaveAttnOut(out.reshape(B, Hq, hd).to(q.dtype), idx)
+
+    # ---- execution buffer: steady zone + retrieved blocks ------------------
+    r = idx.shape[2]
+    kb, vb, pb = _gather_clusters(state, idx)                # (B,H,r,cap,hd)
+    cap = kb.shape[3]
+    sink_pos = torch.arange(retro.sink, dtype=torch.int32, device=q.device)
+    sink_pos = sink_pos.expand(B, Hkv, retro.sink)
+    lbuf = state.local_k.shape[2]
+    local_pos = _local_positions(state)[:, None, :].expand(B, Hkv, lbuf)
+    k_exec = torch.cat([state.sink_k, state.local_k,
+                        kb.reshape(B, Hkv, r * cap, hd)], 2)
+    v_exec = torch.cat([state.sink_v, state.local_v,
+                        vb.reshape(B, Hkv, r * cap, hd)], 2)
+    p_exec = torch.cat([sink_pos, local_pos, pb.reshape(B, Hkv, r * cap)], 2)
+
+    # ---- validity mask over the execution buffer (per-row q_pos) -----------
+    qp = (state.length - 1)[:, None, None]
+    ok = (p_exec >= 0) & (p_exec <= qp)
+    if window is not None:
+        # the reference compares in f32 (int position - f32 window)
+        ok = ok & (p_exec.float() > qp.float() - window)
+    out = tripartite_merge(qg, k_exec, v_exec, ok, est_logit, cs_e, vs_e,
+                           softcap=softcap, impl=impl)
     return WaveAttnOut(out.reshape(B, Hq, hd).to(q.dtype), idx)
+
+
+def tripartite_merge_parts_jnp(qg, k_exec, v_exec, valid, est_logit, cs_e,
+                               vs_e, *, softcap: Optional[float] = None):
+    """Unnormalized merge: (num (B,H,G,hd), den (B,H,G), m (B,H,G)), with
+    num/den scaled by exp(-m). The reference keeps K/V in their storage
+    dtype, rounds q (and later p) to it, and accumulates in f32; torch has no
+    ``preferred_element_type``, so the operands are rounded to the storage
+    dtype and then multiplied in f32 (products of bf16 values are exact in
+    f32, so this computes what the reference computes)."""
+    hd = qg.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+    f32 = torch.float32
+    s = torch.einsum("bhgd,bhtd->bhgt", qg.to(k_exec.dtype).to(f32),
+                     k_exec.to(f32)) * scale
+    s = soft_cap(s, softcap)
+    s = torch.where(valid[:, :, None, :], s, torch.full_like(s, NEG))
+    m = torch.maximum(s.amax(dim=-1), est_logit.amax(dim=-1))  # (B,H,G)
+    m = torch.clamp(m, min=-1e20)
+    p = torch.exp(s - m[..., None])
+    den = p.sum(dim=-1)
+    num = torch.einsum("bhgt,bhtd->bhgd", p.to(v_exec.dtype).to(f32),
+                       v_exec.to(f32))
+    live = est_logit > NEG / 2
+    zero = torch.zeros_like(est_logit)
+    w_den = torch.where(live, torch.exp(est_logit - m[..., None]), zero)
+    w_num = torch.where(live, torch.exp(cs_e - m[..., None]), zero)
+    den = den + w_den.sum(dim=-1)
+    num = num + torch.einsum("bhge,bhed->bhgd", w_num, vs_e.to(f32))
+    return num, den, m
+
+
+def tripartite_merge_jnp(qg, k_exec, v_exec, valid, est_logit, cs_e, vs_e, *,
+                         softcap: Optional[float] = None) -> torch.Tensor:
+    """Reference exact-attention + estimation merge. qg: (B,H,G,hd);
+    k_exec/v_exec: (B,H,T,hd); valid: (B,H,T) bool; est_logit/cs_e:
+    (B,H,G,E) f32 (NEG-masked); vs_e: (B,H,E,hd). Returns (B,H,G,hd) f32."""
+    num, den, _ = tripartite_merge_parts_jnp(
+        qg, k_exec, v_exec, valid, est_logit, cs_e, vs_e, softcap=softcap)
+    return num / torch.clamp(den, min=1e-30)[..., None]
+
+
+def tripartite_merge(qg, k_exec, v_exec, valid, est_logit, cs_e, vs_e, *,
+                     softcap: Optional[float] = None, impl: str = "jnp"):
+    """"jnp" -> plain PyTorch; "pallas" -> the gathered-buffer kernel."""
+    if impl == "jnp":
+        return tripartite_merge_jnp(qg, k_exec, v_exec, valid, est_logit,
+                                    cs_e, vs_e, softcap=softcap)
+    return wa_ops.wave_attention_merge(qg, k_exec, v_exec, valid, est_logit,
+                                       cs_e, vs_e, softcap=softcap)
 
 
 def wave_attention_decode(q, state: WaveState, retro: RetroConfig,
                           plan: ZonePlan, *, window: Optional[float] = None,
                           softcap: Optional[float] = None,
                           use_estimation: bool = True,
-                          overflow_correction: bool = True) -> WaveAttnOut:
+                          overflow_correction: bool = True,
+                          impl: str = "jnp", include_steady=True,
+                          return_parts: bool = False) -> WaveAttnOut:
     """One decode step of tripartite attention. q: (B, Hq, hd) at position
-    state.length - 1 (its K/V already appended to the local buffer)."""
+    state.length - 1 (its K/V already appended to the local buffer).
+    ``impl``: "jnp", "fused" or "pallas" (see the module docstring)."""
     B, Hq, hd = q.shape
     Hkv = state.centroid.shape[1]
     qg = q.reshape(B, Hkv, Hq // Hkv, hd)
+    impl = resolve_attn_impl(impl)
     idx_r, est_logit, cs_e, vs_e = wave_decode_rank(
         qg, state, retro, plan, window=window, softcap=softcap,
         use_estimation=use_estimation,
         overflow_correction=overflow_correction)
     return wave_attention_attend(q, state, retro, plan, idx_r, est_logit,
-                                 cs_e, vs_e, window=window, softcap=softcap)
+                                 cs_e, vs_e, window=window, softcap=softcap,
+                                 impl=impl, include_steady=include_steady,
+                                 return_parts=return_parts)
 
 
 class DenseCache(NamedTuple):

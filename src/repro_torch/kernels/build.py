@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``<repo>/build/kernels`` at
-first use, then loaded with ``ctypes``. A library is rebuilt when its source
-is newer. Several sources compile in parallel (one ``nvcc`` each).
+first use, then loaded with ``ctypes``. A library is rebuilt when its source,
+or a ``*.cuh`` header beside it, is newer. Several sources compile in
+parallel (one ``nvcc`` each).
 """
 from __future__ import annotations
 
@@ -46,7 +47,9 @@ def build(sources: Sequence[Path]) -> List[dict]:
     for src in sources:
         src = Path(src)
         lib = library_path(src)
-        if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+        newest = max(f.stat().st_mtime
+                     for f in (src, *src.parent.glob("*.cuh")))
+        if lib.exists() and lib.stat().st_mtime >= newest:
             jobs.append((src, lib, None, None, 0.0))
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")

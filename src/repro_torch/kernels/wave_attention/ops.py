@@ -1,16 +1,18 @@
-"""Wrapper around the paged wave-attention kernel.
+"""Wrappers around the wave-attention kernels.
 
-Port of ``repro/kernels/wave_attention/ops.py::paged_wave_attention``. It
-keeps the reference's public layout, flattens (B, Hkv) into BH as views (a
-store is never converted or copied), and then:
+Port of ``repro/kernels/wave_attention/ops.py``: ``wave_attention_merge``
+(the gathered-buffer kernel, ``csrc/wave_attention.cu``) and
+``paged_wave_attention`` (the paged kernel, ``csrc/paged_wave_attention.cu``).
+Each keeps the reference's public (B, Hkv, ...) layout, flattens (B, Hkv)
+into BH as views (K/V are never converted or copied), and then:
 
-* CPU tensors go to the plain twin ``ref.paged_wave_attention_torch``;
-* CUDA tensors go to the CUDA kernel ``csrc/paged_wave_attention.cu``
-  (built at first use, loaded with ctypes) — it launches or raises.
+* CPU tensors go to the plain twin in ``ref.py``;
+* CUDA tensors go to the CUDA kernel (built at first use, loaded with
+  ctypes) — it launches or raises.
 
-``paged_wave_attention.launches`` counts kernel launches (never twin runs).
-``paged_wave_attention_plain`` runs the twin on any device with the same
-arguments (the kernel's yardstick on the card).
+``<wrapper>.launches`` counts kernel launches (never twin runs).
+``<wrapper>_plain`` runs the twin on any device with the same arguments
+(the kernel's yardstick on the card).
 """
 from __future__ import annotations
 
@@ -21,9 +23,11 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.wave_attention.ref import paged_wave_attention_torch
+from repro_torch.kernels.wave_attention.ref import (paged_wave_attention_torch,
+                                                   wave_attention_ref)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_wave_attention.cu"
+MERGE_SOURCE = Path(__file__).resolve().parent / "csrc" / "wave_attention.cu"
 STORE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the wrapper's positional arguments, in order
 ARG_NAMES = ("qg", "sink_k", "sink_v", "local_k", "local_v", "local_pos",
@@ -44,6 +48,95 @@ def _lib() -> ctypes.CDLL:
     # cap, r, E; scale, softcap, use_softcap; stream
     fn.argtypes = [I] + [P] * 16 + [I] * 10 + [F, F, I, P]
     return lib
+
+
+def _merge_lib() -> ctypes.CDLL:
+    lib = build.load(MERGE_SOURCE)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.wave_attention_merge
+    fn.restype = I
+    # store_dtype; 8 pointers (q .. out); BH, G, hd, T, E; scale, softcap,
+    # use_softcap; stream
+    fn.argtypes = [I] + [P] * 8 + [I] * 5 + [F, F, I, P]
+    return lib
+
+
+def _check_merge(qg, k_exec, v_exec, valid, est_logit, cs_e, vs_e):
+    """Raise on device, shape or dtype the merge does not take."""
+    B, H, G, hd = qg.shape
+    T, E = k_exec.shape[2], vs_e.shape[2]
+    spec = dict(qg=(qg, (B, H, G, hd)), k_exec=(k_exec, (B, H, T, hd)),
+                v_exec=(v_exec, (B, H, T, hd)), valid=(valid, (B, H, T)),
+                est_logit=(est_logit, (B, H, G, E)), cs_e=(cs_e, (B, H, G, E)),
+                vs_e=(vs_e, (B, H, E, hd)))
+    for name, (t, shape) in spec.items():
+        if t.device != qg.device:
+            raise ValueError(f"{name} is on {t.device}, expected {qg.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+    if k_exec.dtype not in STORE_DTYPES or v_exec.dtype != k_exec.dtype:
+        raise TypeError(f"k/v_exec dtypes {k_exec.dtype}/{v_exec.dtype}: "
+                        f"expected one of {tuple(STORE_DTYPES)} for both")
+
+
+def wave_attention_merge_plain(qg, k_exec, v_exec, valid, est_logit, cs_e,
+                               vs_e, *, softcap=None):
+    """The plain twin on the wrapper's arguments, on any device."""
+    _check_merge(qg, k_exec, v_exec, valid, est_logit, cs_e, vs_e)
+    B, H, G, hd = qg.shape
+    flat = lambda a: a.reshape((B * H,) + a.shape[2:])
+    out = wave_attention_ref(flat(qg), flat(k_exec), flat(v_exec),
+                             flat(valid), flat(est_logit), flat(cs_e),
+                             flat(vs_e), softcap=softcap)
+    return out.view(B, H, G, hd)
+
+
+def wave_attention_merge(qg, k_exec, v_exec, valid, est_logit, cs_e, vs_e, *,
+                         softcap=None):
+    """Same contract as ``core.attention.tripartite_merge_jnp``: qg
+    (B,H,G,hd), k/v_exec (B,H,T,hd) bf16 or f32, valid (B,H,T) bool,
+    est_logit/cs_e (B,H,G,E), vs_e (B,H,E,hd) -> (B,H,G,hd) f32, computed in
+    f32 on the upcast operands. The kernel reads K/V in their storage dtype
+    and converts in registers, so the f32 upcast of the reference wrapper is
+    never materialised; its TPU padding (T to ``block_t``, E and hd to 128
+    lanes) has no counterpart: the kernel masks its own ragged tiles."""
+    args = (qg, k_exec, v_exec, valid, est_logit, cs_e, vs_e)
+    dev = qg.device
+    if dev.type == "cpu":
+        return wave_attention_merge_plain(*args, softcap=softcap)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check_merge(*args)
+    B, H, G, hd = qg.shape
+    T, E = k_exec.shape[2], vs_e.shape[2]
+    if G not in (1, 2, 4, 8):
+        raise ValueError(f"kernel takes G in (1, 2, 4, 8), got {G}")
+    if hd > 256 or hd % 8 or (hd // 8) & (hd // 8 - 1):
+        raise ValueError(f"kernel takes hd = 8 * 2^k <= 256, got {hd}")
+    for name, t in (("k_exec", k_exec), ("v_exec", v_exec)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    f32 = torch.float32
+    q = qg.to(f32).contiguous()
+    ok = valid.bool().contiguous()
+    el, cs, vs = (a.to(f32).contiguous() for a in (est_logit, cs_e, vs_e))
+    out = torch.empty((B * H, G, hd), dtype=f32, device=dev)
+    use_cap = softcap is not None and softcap > 0
+    err = _merge_lib().wave_attention_merge(
+        STORE_DTYPES[k_exec.dtype], q.data_ptr(), k_exec.data_ptr(),
+        v_exec.data_ptr(), ok.data_ptr(), el.data_ptr(), cs.data_ptr(),
+        vs.data_ptr(), out.data_ptr(), B * H, G, hd, T, E,
+        1.0 / math.sqrt(hd), float(softcap) if use_cap else 0.0,
+        int(use_cap), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wave_attention_merge kernel launch failed: "
+                           f"cudaError {err}")
+    wave_attention_merge.launches += 1
+    return out.view(B, H, G, hd)
+
+
+wave_attention_merge.launches = 0
 
 
 def _flatten(args):

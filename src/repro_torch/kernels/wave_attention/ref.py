@@ -1,10 +1,15 @@
-"""Plain PyTorch twin of the paged wave-attention kernel.
+"""Plain PyTorch twins of the wave-attention kernels.
 
-Port of ``repro/kernels/wave_attention/ref.py::paged_wave_attention_jnp``:
-same arguments, same fold order (sink -> local buffer -> one retrieved
-cluster at a time -> estimation finalize) and the same masking constants.
-The wrapper in ``ops.py`` runs it for CPU tensors; ``chip_smoke.py`` holds
-the CUDA kernel against it on the card.
+Port of ``repro/kernels/wave_attention/ref.py``:
+
+* ``wave_attention_ref`` twins the gathered-buffer kernel: the reference
+  merge over a contiguous execution buffer, in f32 on upcast operands;
+* ``paged_wave_attention_torch`` twins the paged kernel: same arguments,
+  same fold order (sink -> local buffer -> one retrieved cluster at a time
+  -> estimation finalize) and the same masking constants.
+
+The wrappers in ``ops.py`` run them for CPU tensors; ``chip_smoke.py``
+holds the CUDA kernels against them on the card.
 """
 from __future__ import annotations
 
@@ -13,6 +18,20 @@ import math
 import torch
 
 NEG = -1e30
+
+
+def wave_attention_ref(q, k, v, valid, est_logit, cs, vs, *, softcap=None):
+    """Flat-batch twin of the gathered-buffer kernel. q: (BH, G, hd); k/v:
+    (BH, T, hd) in any float dtype; valid: (BH, T); est_logit/cs: (BH, G,
+    E); vs: (BH, E, hd) -> (BH, G, hd) f32. Computes wholly in f32 on the
+    upcast operands, as the reference wrapper hands them to its kernel."""
+    from repro_torch.core.attention import tripartite_merge_jnp
+    f32 = torch.float32
+    add = lambda a: a[:, None].to(f32)              # (BH, ...) -> (BH, 1, ...)
+    out = tripartite_merge_jnp(add(q), add(k), add(v), (valid > 0)[:, None],
+                               add(est_logit), add(cs), add(vs),
+                               softcap=softcap)
+    return out[:, 0]
 
 
 def paged_wave_attention_torch(idx, rowb, live, q, sink_k, sink_v,
@@ -139,3 +158,33 @@ def random_decode_inputs(*, B=2, H=4, G=2, hd=256, M=1280, cap=32, sink=4,
             randn(B, H, M, cap, hd).to(dt), randn(B, H, M, cap, hd).to(dt),
             pos_store, idx, live, rowb,
             est_logit, 3 * randn(B, H, G, E), 20 * randn(B, H, E, hd)]
+
+
+def random_merge_inputs(*, B=2, H=4, G=2, hd=256, T=1668, E=256,
+                        dtype="bfloat16", keep_min=0.2, dead_frac=0.1,
+                        seed=0, device="cpu"):
+    """Random gathered-buffer merge inputs in the wrapper's (B, H, ...)
+    layout. Defaults are gemma2-2b's decode shapes at a 16384-token context
+    with the default RetroConfig: T = sink 4 + local buffer 1088 + r 18 x
+    cap 32, E = e 238 + r 18. K/V are in the storage ``dtype``. The mask is
+    ragged: each row keeps its own random share of the tokens, at least
+    ``keep_min`` (0 allows empty rows). ``dead_frac`` of the estimation
+    entries are NEG (1.0: all of them)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=device)
+
+    keep = keep_min + (1 - keep_min) * rand(B, H, 1)
+    valid = rand(B, H, T) < keep
+    est_logit = 3 * randn(B, H, G, E)
+    cs = est_logit - randn(B, H, G, E).abs()
+    est_logit = torch.where(rand(B, H, G, E) < dead_frac,
+                            torch.full_like(est_logit, NEG), est_logit)
+    return [randn(B, H, G, hd), randn(B, H, T, hd).to(dt),
+            randn(B, H, T, hd).to(dt), valid, est_logit, cs,
+            3 * randn(B, H, E, hd)]

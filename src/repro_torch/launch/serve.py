@@ -30,6 +30,13 @@ def main(argv=None):
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--stagger", type=int, default=0,
                     help="request i generates new-tokens + i*stagger tokens")
+    ap.add_argument("--attn-impl", default=None, choices=["jnp", "fused"],
+                    help="retro decode-attention implementation: 'jnp' "
+                         "(reference execution-buffer path) or 'fused' "
+                         "(gather-free paged CUDA wave-attention kernel — "
+                         "retrieved clusters read from the stores in place, "
+                         "no gather temp; its plain twin on the CPU). "
+                         "Default: the config's retro.attn_impl")
     ap.add_argument("--prefill-chunk", type=int, default=256,
                     help="chunked-admission tokens per scheduler iteration")
     ap.add_argument("--max-decode-steps", type=int, default=None,
@@ -45,6 +52,7 @@ def main(argv=None):
     lens = [int(x) for x in args.prompt_lens.split(",")]
     engine = ServeEngine(cfg, params, gen_headroom=512,
                          prefill_chunk=args.prefill_chunk,
+                         attn_impl=args.attn_impl,
                          max_decode_steps=args.max_decode_steps, device=dev)
     rng = np.random.default_rng(args.seed)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab, lens[i % len(lens)])
@@ -53,7 +61,7 @@ def main(argv=None):
             for i in range(args.requests)]
     m = engine.serve(reqs, batch_size=args.batch)
     print(f"served {len(reqs)} requests on {args.batch} slots (retro, "
-          f"chunked admission, fused attention, {dev}): "
+          f"chunked admission, {engine.attn_impl} attention, {dev}): "
           f"prefill {m.prefill_s:.2f}s, "
           f"decode {m.tokens_out} tokens @ {m.decode_tps:.1f} tok/s, "
           f"slot occupancy {m.slot_occupancy:.2f}, "

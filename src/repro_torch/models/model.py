@@ -5,7 +5,8 @@ dense family, retro runtime with chunked admission:
     cs          = make_prefill_chunk_state(cfg, B, max_ctx, chunk=C, device=...)
     logits, cs  = apply_prefill_chunk(params, cfg, {"tokens": ...}, cs, ...)
     state       = finalize_prefill_chunk(cfg, cs, total_len=L)
-    logits, st  = apply_decode(params, cfg, state, token, plan=..., active=...)
+    logits, st  = apply_decode(params, cfg, state, token, plan=..., active=...,
+                               attn_impl=...)
     state       = flush_state(cfg, state)
     state       = make_serve_state(cfg, B, seq_len, device=...)
 
@@ -69,14 +70,17 @@ def finalize_prefill_chunk(cfg: ModelConfig, state, *, total_len: int):
 def apply_decode(params, cfg: ModelConfig, state, token, *,
                  plan: Optional[ZonePlan] = None,
                  seq_len: Optional[int] = None, gen_headroom: int = 4096,
-                 active=None):
+                 active=None, attn_impl: Optional[str] = None):
+    """``active``: optional (B,) bool slot mask. ``attn_impl``: "jnp"
+    (reference execution-buffer path), "fused" (paged kernel) or "pallas"
+    (gathered-buffer kernel); None defers to ``cfg.retro.attn_impl``."""
     _dense_only(cfg)
     if plan is None:
         if seq_len is None:
             raise ValueError("need plan or seq_len")
         plan = plan_zones(seq_len, cfg.retro, gen_headroom)
     return transformer.decode_step(params, cfg, state, token, plan=plan,
-                                   active=active)
+                                   active=active, attn_impl=attn_impl)
 
 
 def flush_state(cfg: ModelConfig, state, rows=None):

@@ -2,9 +2,10 @@
 
 Port of ``repro/models/transformer.py``, dense family only: init, chunked
 prefill (exact chunk attention against an admission cache while the wave
-index is built incrementally), its finalize, and the retro decode step with
-the fused paged-attention path. The JAX layer scan becomes a Python loop
-over per-layer parameter dicts and per-layer states.
+index is built incrementally), its finalize, and the retro decode step
+with any of the decode-attention impls (``attn_impl``: "jnp", "fused",
+"pallas"). The JAX layer scan becomes a Python loop over per-layer
+parameter dicts and per-layer states.
 """
 from __future__ import annotations
 
@@ -210,12 +211,15 @@ def finalize_prefill_chunk(cfg: ModelConfig, state: PrefillChunkState, *,
 
 
 def decode_step(params, cfg: ModelConfig, state: ServeState, token, *,
-                plan: ZonePlan, active: Optional[torch.Tensor] = None
+                plan: ZonePlan, active: Optional[torch.Tensor] = None,
+                attn_impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, ServeState]:
-    """One generation step (retro runtime, fused paged attention).
-    token: (B,) -> logits (B, V) f32. ``active``: optional (B,) bool slot
-    mask — free rows skip the KV append; their logits are discarded."""
+    """One generation step (retro runtime). token: (B,) -> logits (B, V)
+    f32. ``active``: optional (B,) bool slot mask — free rows skip the KV
+    append; their logits are discarded. ``attn_impl``: "jnp", "fused" or
+    "pallas"; None defers to ``cfg.retro.attn_impl``."""
     a, retro = cfg.attn, cfg.retro
+    impl = wa.resolve_attn_impl(attn_impl or retro.attn_impl)
     x = embed_tokens(params, cfg, token)                       # (B, D)
     B = x.shape[0]
     kv = []
@@ -228,7 +232,7 @@ def decode_step(params, cfg: ModelConfig, state: ServeState, token, *,
         q, k, v = q[:, 0], k[:, 0], v[:, 0]                    # (B, H*, hd)
         lstate = append_token(lstate, k, v, active=active)
         o = wa.wave_attention_decode(q, lstate, retro, plan, window=window,
-                                     softcap=a.softcap).out
+                                     softcap=a.softcap, impl=impl).out
         x = x + o.reshape(B, -1) @ lp["attn"]["wo"]
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + _ffn(lp, h, cfg)

@@ -2,8 +2,9 @@
 loop that reads ids back once per step, one step late.
 
 Port of ``repro/serving/engine.py`` (retro runtime, direct store, chunked
-admission; blocking admission, ``runtime="full"``, the host-offload plane
-and ``run_wave`` are not ported yet).
+admission, every decode-attention impl; blocking admission,
+``runtime="full"``, the host-offload plane and ``run_wave`` are not ported
+yet).
 
 The decode loop runs a fixed number of slots. A request's prompt is consumed
 one fixed-size chunk per scheduler iteration, interleaved between decode
@@ -27,6 +28,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.attention import resolve_attn_impl
 from repro_torch.core.wave_index import local_buffer_size
 from repro_torch.core.zones import plan_zones
 from repro_torch.models import model as M
@@ -140,14 +142,18 @@ class ServeEngine:
     """``serve(requests, batch_size)`` — continuous scheduler over a slot
     batch. ``max_context`` pins the decode geometry (zone plan, cluster-store
     capacity); a request's outputs do not depend on what shares the batch.
-    ``device`` defaults to ``cuda`` and raises when there is no card."""
+    ``attn_impl`` selects the decode-attention implementation ("jnp"
+    reference, "fused" paged kernel, "pallas" gathered-buffer kernel); None
+    defers to ``cfg.retro.attn_impl``. ``device`` defaults to ``cuda`` and
+    raises when there is no card."""
 
     def __init__(self, cfg: ModelConfig, params, *, gen_headroom: int = 1024,
                  max_context: Optional[int] = None,
-                 prefill_chunk: int = 256,
+                 prefill_chunk: int = 256, attn_impl: Optional[str] = None,
                  max_decode_steps: Optional[int] = None, device=None):
         self.device = resolve_device(device)
         M._dense_only(cfg)
+        self.attn_impl = resolve_attn_impl(attn_impl or cfg.retro.attn_impl)
         self.cfg = cfg
         self.params = params
         self.gen_headroom = gen_headroom
@@ -274,7 +280,7 @@ class ServeEngine:
             if active.any():
                 logits, state = M.apply_decode(
                     self.params, cfg, state, tokens_dev, plan=plan,
-                    active=to_device(active, dev))
+                    active=to_device(active, dev), attn_impl=self.attn_impl)
                 new_sampled = self._sample_dev(logits)   # device, no sync
                 cur = _Readback(new_sampled)
                 snapshot = [slots[i] if active[i] else None for i in range(B)]

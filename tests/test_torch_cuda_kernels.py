@@ -1,6 +1,7 @@
-"""The CUDA paged wave-attention kernel against its plain twin, on a CUDA
-card (marked ``cuda``; skipped without a card: a CUDA kernel has no CPU
-mode). Imports no JAX, so it also runs on a machine with the card and
+"""The CUDA kernels against their plain twins, on a CUDA card (marked
+``cuda``; skipped without a card: a CUDA kernel has no CPU mode): the paged
+and the gathered-buffer wave attention, the block gather and the k-means
+step. Imports no JAX, so it also runs on a machine with the card and
 without JAX:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
@@ -8,8 +9,12 @@ without JAX:
 import pytest
 import torch
 
+from repro_torch.kernels.gather import ops as gather_ops
+from repro_torch.kernels.kmeans import ops as kmeans_ops
+from repro_torch.kernels.kmeans.ref import kmeans_step_check
 from repro_torch.kernels.wave_attention import ops
-from repro_torch.kernels.wave_attention.ref import random_decode_inputs
+from repro_torch.kernels.wave_attention.ref import (random_decode_inputs,
+                                                   random_merge_inputs)
 
 torch.set_num_threads(2)
 SMALL = dict(H=2, hd=32, M=48, cap=16, lbuf=160, r=3, e=10, q_pos=(900, 300),
@@ -54,3 +59,60 @@ def test_cpu_tensors_use_the_twin_without_counting():
     torch.testing.assert_close(
         out, ops.paged_wave_attention_plain(*args, softcap=50.0),
         rtol=0, atol=0)
+
+
+MERGE_SMALL = dict(H=2, hd=32, T=300, E=24)
+MERGE_CASES = {
+    "f32": dict(MERGE_SMALL, dtype="float32"),
+    "bf16": dict(MERGE_SMALL),
+    "hd256_G4_T77": dict(MERGE_SMALL, hd=256, G=4, T=77, E=5),
+    "G8_hd64_all_dead_est": dict(MERGE_SMALL, G=8, hd=64, dead_frac=1.0),
+    "G1_empty_rows": dict(MERGE_SMALL, G=1, keep_min=0.0, seed=3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softcap", [None, 50.0])
+@pytest.mark.parametrize("case", list(MERGE_CASES))
+def test_cuda_merge_kernel_matches_twin(cuda, case, softcap):
+    args = [a.to(cuda) for a in random_merge_inputs(**MERGE_CASES[case])]
+    before = ops.wave_attention_merge.launches
+    out = ops.wave_attention_merge(*args, softcap=softcap)
+    torch.cuda.synchronize()
+    assert ops.wave_attention_merge.launches == before + 1
+    ref = ops.wave_attention_merge_plain(*args, softcap=softcap)
+    tol = 2e-5 * (1 + ref.abs().max().item())
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_block_gather_is_exact(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    kst, vst = (torch.randn((2, 2, 64, 16, 32), generator=g,
+                            device=cuda).to(dtype) for _ in range(2))
+    idx = torch.randint(0, 64, (2, 2, 9), generator=g, device=cuda,
+                        dtype=torch.int32)
+    idx[0, 0, :3] = 5                                  # repeated ids
+    before = gather_ops.block_gather_op.launches
+    ko, vo = gather_ops.block_gather_op(idx, kst, vst)
+    torch.cuda.synchronize()
+    assert gather_ops.block_gather_op.launches == before + 1
+    kr, vr = gather_ops.block_gather_plain(idx, kst, vst)
+    assert torch.equal(ko, kr) and torch.equal(vo, vr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,n,d,k", [(4, 256, 32, 16), (2, 1000, 256, 70),
+                                     (1, 64, 16, 1)])
+def test_cuda_kmeans_step_matches_twin(cuda, S, n, d, k):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((S, n, d), generator=g, device=cuda)
+    cent = x[:, :k].clone()
+    before = kmeans_ops.kmeans_step.launches
+    sums, counts, assign = kmeans_ops.kmeans_step(x, cent)
+    torch.cuda.synchronize()
+    assert kmeans_ops.kmeans_step.launches == before + 1
+    res = kmeans_step_check(x, cent, sums, counts, assign)
+    assert res["ok"], res

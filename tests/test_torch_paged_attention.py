@@ -166,7 +166,7 @@ def test_decode_attention_matches_reference(case):
     pkw = dict(softcap=kw.get("softcap"),
                window=None if win is None else float(win))
     out = PA.wave_attention_decode(tensor_from_numpy(q, "cpu"), pst,
-                                   pretro, pplan, **pkw)
+                                   pretro, pplan, impl="fused", **pkw)
     np.testing.assert_allclose(out.out.numpy(), np.asarray(ref.out), **TOL)
 
     # ranking: scores agree; ids agree on live (non-NEG) clusters

@@ -1,6 +1,7 @@
 """The slice end to end on gemma2-2b ``reduced()``: chunked prefill and
 decode logits against the JAX package, the serve engine's batch invariance
 across a staging-buffer flush, and the port's independence from JAX."""
+import dataclasses
 import functools
 import os
 import subprocess
@@ -105,10 +106,13 @@ def test_prefill_resumes_from_carried_state(models, ref_prefill):
     np.testing.assert_allclose(lg.numpy(), ref_logits[1], **TOL)
 
 
-def test_decode_steps_match_reference(models):
+@pytest.mark.parametrize("attn_impl", ["fused", "jnp", "pallas"])
+def test_decode_steps_match_reference(models, attn_impl):
     """Eight decode steps from the same carried-across wave state (one
     prompt per row, finalized by the reference) with the same tokens: the
-    port's logits match ``decode_step(attn_impl="fused")``."""
+    port's logits match ``decode_step`` with the same ``attn_impl`` (the
+    reference's Pallas kernels interpreted) within 1e-4 for every impl: the
+    reduced config is f32, so no impl rounds to bf16."""
     ref_cfg, ref_params, cfg, params = models
     toks = _prompts()[0:1, :LENS[0]]
     cs = RM.make_prefill_chunk_state(ref_cfg, 1, LENS[0], chunk=LENS[0],
@@ -120,14 +124,14 @@ def test_decode_steps_match_reference(models):
     ref_plan = ref_plan_zones(LENS[0], ref_cfg.retro, 128)
     plan = plan_zones(LENS[0], cfg.retro, 128)
     dec = jax.jit(functools.partial(RT.decode_step, cfg=ref_cfg,
-                                    plan=ref_plan, attn_impl="fused"))
+                                    plan=ref_plan, attn_impl=attn_impl))
     rng = np.random.default_rng(1)
     for t in range(8):
         tok = rng.integers(0, 512, (1,)).astype(np.int32)
         ref_lg, ref_state = dec(ref_params, state=ref_state,
                                 token=jnp.asarray(tok))
         lg, state = PT.decode_step(params, cfg, state, torch.from_numpy(tok),
-                                   plan=plan)
+                                   plan=plan, attn_impl=attn_impl)
         np.testing.assert_allclose(lg.numpy(), np.asarray(ref_lg), **TOL,
                                    err_msg=f"step {t}")
 
@@ -171,6 +175,46 @@ def test_serve_launcher_runs_on_cpu(capsys):
     assert "req 1: prompt 60, out 5," in out and "[timeout]" in out
 
 
+def test_engine_attn_impl_follows_config(models):
+    """With no ``attn_impl`` the engine takes ``cfg.retro.attn_impl`` (the
+    reference's default "jnp"), and decodes through that impl: only
+    "pallas" reaches the gathered-buffer merge."""
+    from unittest import mock
+
+    from repro_torch.kernels.wave_attention import ops as wa_ops
+    _, _, cfg, params = models
+    assert cfg.retro.attn_impl == "jnp"
+    assert ServeEngine(cfg, params, device="cpu").attn_impl == "jnp"
+    pallas_cfg = cfg.replace(retro=dataclasses.replace(cfg.retro,
+                                                       attn_impl="pallas"))
+    for c, impl, want in ((cfg, None, 0), (pallas_cfg, None, 1),
+                          (pallas_cfg, "jnp", 0), (cfg, "pallas", 1)):
+        eng = ServeEngine(c, params, device="cpu", attn_impl=impl,
+                          prefill_chunk=CHUNK)
+        assert eng.attn_impl == (impl or c.retro.attn_impl)
+        req = Request(np.arange(40, dtype=np.int32), 3)
+        with mock.patch.object(wa_ops, "wave_attention_merge",
+                               wraps=wa_ops.wave_attention_merge) as spy:
+            m = eng.serve([req], batch_size=1)
+        assert m.steps > 0
+        assert spy.call_count == want * cfg.n_layers * m.steps, (impl, c)
+    with pytest.raises(ValueError, match="unknown attn impl"):
+        ServeEngine(cfg, params, device="cpu", attn_impl="flash")
+
+
+def test_serve_launcher_attn_impl(capsys):
+    """``--attn-impl`` reaches the engine and the report names it."""
+    from repro_torch.launch import serve
+    for flag, want in ((["--attn-impl", "jnp"], "jnp attention"),
+                       (["--attn-impl", "fused"], "fused attention"),
+                       ([], "jnp attention")):
+        serve.main(["--arch", "gemma2_2b", "--reduced", "--device", "cpu",
+                    "--requests", "1", "--prompt-lens", "40",
+                    "--new-tokens", "2", "--prefill-chunk", "32", *flag])
+        out = capsys.readouterr().out
+        assert want in out and "req 0: prompt 40, out 2," in out, flag
+
+
 def test_default_device_needs_cuda(models):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -196,7 +240,7 @@ for m in mods:
     importlib.import_module(m)
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k in sys.modules)
-print(len(mods))
+print(" ".join(mods))
 """
 
 
@@ -205,7 +249,11 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", BLOCK_JAX], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    mods = set(out.stdout.split())
+    assert len(mods) >= 29
+    assert {f"repro_torch.kernels.{k}.{m}" for k in ("gather", "kmeans",
+                                                     "wave_attention")
+            for m in ("ops", "ref")} <= mods
     import re
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)\b|\brepro\.",
                      re.MULTILINE)
