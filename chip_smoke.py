@@ -18,7 +18,12 @@
 5. serves full-width gemma2-2b through ``ServeEngine(attn_impl="pallas")``
    (the gathered-buffer kernel), checks its launch count, holds the kernel
    and the block gather against their twins on captured launches, and
-   compares the three impls' attention on the state the run leaves.
+   compares the three impls' attention on the state the run leaves; then
+   profiles one decode step of that path.
+
+Each attention kernel call is two launches (split, combine); on every
+captured launch the script prints the split grid (rows x splits), checks
+that two calls give the same bits, and times the wrapper's host work.
 
 Prints the card's name and power limit, one JSON line of kernel results and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
@@ -75,17 +80,49 @@ def compare(name, args, softcap, *, op="paged_wave_attention", time_it=False):
         raise AssertionError(f"{name}: kernel output not finite")
     err = (out - ref).abs().max().item()
     tol = 2e-5 * (1.0 + ref.abs().max().item())
-    res = dict(case=name, max_abs_err=err, tol=tol)
+    again = kern(*args, softcap=softcap)
+    grid = getattr(ops, GRID[op])(*args)
+    res = dict(case=name, max_abs_err=err, tol=tol,
+               bit_identical=bool(torch.equal(out, again)),
+               grid=f"{grid['rows']} x {grid['splits']}",
+               tiles_per_split=grid["tiles_per_split"])
     if time_it:
         res["ms"] = time_ms(lambda: kern(*args, softcap=softcap))
         res["plain_ms"] = time_ms(lambda: plain(*args, softcap=softcap))
-    log(f"  {name}: max|d| {err:.3e} tol {tol:.3e}"
-        + (f"  kernel {res['ms']:.4f} ms  twin {res['plain_ms']:.4f} ms"
-           if time_it else ""))
+        res["host_us_per_call"] = host_us(lambda: kern(*args,
+                                                       softcap=softcap))
+    log(f"  {name}: max|d| {err:.3e} tol {tol:.3e}  grid {res['grid']} "
+        f"(rows x splits, {grid['tiles_per_split']} tile(s) per split)"
+        + (f"  kernel {res['ms']:.4f} ms  twin {res['plain_ms']:.4f} ms  "
+           f"host {res['host_us_per_call']:.1f} us per call" if time_it
+           else ""))
     if not err <= tol:
         raise AssertionError(f"{name}: kernel disagrees with twin: "
                              f"{err} > {tol}")
+    if not res["bit_identical"]:
+        raise AssertionError(f"{name}: two kernel calls on the same inputs "
+                             f"gave different bits")
     return res
+
+
+GRID = {"paged_wave_attention": "paged_grid",
+        "wave_attention_merge": "merge_grid"}
+
+
+def host_us(fn, reps=200):
+    """Mean host time of ``fn`` in microseconds over ``reps`` calls, not
+    synced: what the wrapper costs the host per call (checks, views,
+    allocations, the ctypes call and its launches)."""
+    import torch
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
 
 
 def time_ms(fn, reps=20):
@@ -603,11 +640,20 @@ def decode_breakdown(engine, max_ctx, steps=8):
         raise AssertionError("profiler saw no device kernels")
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
+    # each attention kernel call is a split and a combine launch, both named
+    # after the kernel's tile source
+    attn = {name: dict(ms_per_step=sum(us for us, k, _ in rows if tag in k)
+                       / 1e3 / steps,
+                       launches_per_step=sum(c for _, k, c in rows
+                                             if tag in k) / steps)
+            for name, tag in (("paged_wave_attention", "PagedSrc"),
+                              ("wave_attention_merge", "MergeSrc"))}
     res = dict(enqueue_ms=1e3 * sum(enq) / steps,
                step_wall_ms=1e3 * sum(wall) / steps,
                profiled_step_ms=1e3 * prof_wall / steps,
                device_busy_ms=1e3 * busy_s / steps,
                device_busy_share=busy_s / prof_wall,
+               attention_kernels=attn,
                top_kernels=[dict(name=k[:90], ms_per_step=us / 1e3 / steps,
                                  calls_per_step=c / steps)
                             for us, k, c in rows[:10]])
@@ -615,6 +661,10 @@ def decode_breakdown(engine, max_ctx, steps=8):
         f"synced wall {res['step_wall_ms']:.2f} ms, device busy "
         f"{res['device_busy_ms']:.2f} ms ({100 * res['device_busy_share']:.1f}%"
         f" of the profiled wall)")
+    for name, a in attn.items():
+        if a["launches_per_step"]:
+            log(f"  {name} (split + combine): {a['ms_per_step']:.3f} ms/step "
+                f"in {a['launches_per_step']:.1f} launches")
     for k in res["top_kernels"]:
         log(f"    {k['ms_per_step']:8.3f} ms/step {k['calls_per_step']:6.1f} "
             f"calls  {k['name']}")
@@ -798,6 +848,8 @@ def main(argv=None):
     results["block_gather"].append(gather)
     del taken5, idx, ks, vs
     impls = compare_impls(engine5, g_layer, max(prompt_lens5))
+    log("  decode-step breakdown (after the run, both slots decoding)")
+    breakdown5 = decode_breakdown(engine5, max(prompt_lens5))
     del engine5
     torch.cuda.empty_cache()
 
@@ -831,7 +883,8 @@ def main(argv=None):
         opts.json.write_text(json.dumps(dict(
             card=card, build_s=build_s, cases=results, serve=serve,
             decode_breakdown=breakdown, reduced_card_vs_cpu_err=red_err,
-            serve_pallas=serve5, impls=impls, kernels=kernels), indent=1))
+            serve_pallas=serve5, decode_breakdown_pallas=breakdown5,
+            impls=impls, kernels=kernels), indent=1))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,10 @@ into BH as views (K/V are never converted or copied), and then:
 * CUDA tensors go to the CUDA kernel (built at first use, loaded with
   ctypes) — it launches or raises.
 
-``<wrapper>.launches`` counts kernel launches (never twin runs).
+A kernel call is two launches from one C entry point: a split kernel over
+(rows, splits) that writes one partial per split into a workspace, then a
+combine kernel (``csrc/wave_fold.cuh``). ``split_plan`` sizes the splits from
+the shapes. ``<wrapper>.launches`` counts kernel calls (never twin runs).
 ``<wrapper>_plain`` runs the twin on any device with the same arguments
 (the kernel's yardstick on the card).
 """
@@ -38,27 +41,83 @@ _FLAT_ORDER = ("idx_r", "rowb", "live", "qg", "sink_k", "sink_v", "local_k",
                "local_v", "local_pos", "k_store", "v_store", "pos_store",
                "est_logit", "cs_e", "vs_e")
 
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.paged_wave_attention
-    fn.restype = I
-    # store_dtype; 16 pointers (idx .. out); BH, G, hd, Ss, sink_len, Lb, M,
-    # cap, r, E; scale, softcap, use_softcap; stream
-    fn.argtypes = [I] + [P] * 16 + [I] * 10 + [F, F, I, P]
-    return lib
+# the split plan (csrc/wave_fold.cuh: TILE, MAX_TPS)
+TILE = 32                      # tokens (estimation entries) per tile
+MAX_TPS = 8                    # tiles per split, at most
+TARGET_BLOCKS = 4 * 132        # four blocks for each of the H100's SMs
 
 
-def _merge_lib() -> ctypes.CDLL:
-    lib = build.load(MERGE_SOURCE)
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.wave_attention_merge
-    fn.restype = I
-    # store_dtype; 8 pointers (q .. out); BH, G, hd, T, E; scale, softcap,
-    # use_softcap; stream
-    fn.argtypes = [I] + [P] * 8 + [I] * 5 + [F, F, I, P]
-    return lib
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def split_plan(rows, n_tiles, e_tiles):
+    """(tiles per split, splits per row) for ``rows`` rows whose walk has
+    ``n_tiles`` tiles and whose estimation zone has ``e_tiles``: one tile per
+    split until the grid passes ``TARGET_BLOCKS`` blocks, then more tiles
+    per split (at most ``MAX_TPS``). Attention splits come first."""
+    tps = min(MAX_TPS, max(1, _cdiv(rows * (n_tiles + e_tiles),
+                                    TARGET_BLOCKS)))
+    return tps, _cdiv(n_tiles, tps) + _cdiv(e_tiles, tps)
+
+
+def paged_grid(*args):
+    """The split grid of a ``paged_wave_attention`` call on ``args``."""
+    B, H = args[0].shape[:2]
+    S, Lb = args[ARG_NAMES.index("sink_k")].shape[2], \
+        args[ARG_NAMES.index("local_k")].shape[2]
+    cap = args[ARG_NAMES.index("k_store")].shape[3]
+    r, E = args[ARG_NAMES.index("idx_r")].shape[2], \
+        args[ARG_NAMES.index("vs_e")].shape[2]
+    n_tiles = _cdiv(S, TILE) + _cdiv(Lb, TILE) + r * _cdiv(cap, TILE)
+    return _grid(B * H, n_tiles, _cdiv(E, TILE))
+
+
+def merge_grid(qg, k_exec, v_exec, valid, est_logit, cs_e, vs_e):
+    """The split grid of a ``wave_attention_merge`` call."""
+    B, H = qg.shape[:2]
+    return _grid(B * H, _cdiv(k_exec.shape[2], TILE),
+                 _cdiv(vs_e.shape[2], TILE))
+
+
+def _grid(rows, n_tiles, e_tiles):
+    tps, splits = split_plan(rows, n_tiles, e_tiles)
+    return dict(rows=rows, splits=splits, tiles_per_split=tps)
+
+
+def _workspace(grid, G, hd, device):
+    """The split partials' f32 workspace: acc (rows, S, G, hd), m and l
+    (rows, S, G); every split writes its own, so it is never cleared."""
+    n = grid["rows"] * grid["splits"] * G * (hd + 2)
+    return torch.empty((n,), dtype=torch.float32, device=device)
+
+
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
+_ENTRY_POINTS = {
+    # store_dtype; 16 pointers (idx .. out); ws, ws_floats; BH, G, hd, Ss,
+    # sink_len, Lb, M, cap, r, E, tps; scale, softcap, use_softcap; stream
+    "paged_wave_attention": (SOURCE, [_I] + [_P] * 16 + [_P, _L] + [_I] * 11
+                             + [_F, _F, _I, _P]),
+    # store_dtype; 8 pointers (q .. out); ws, ws_floats; BH, G, hd, T, E,
+    # tps; scale, softcap, use_softcap; stream
+    "wave_attention_merge": (MERGE_SOURCE, [_I] + [_P] * 8 + [_P, _L]
+                             + [_I] * 6 + [_F, _F, _I, _P]),
+}
+_BOUND = {}
+
+
+def _entry(name):
+    """The C entry point ``name``, its library built and loaded and its
+    ctypes signature set on first use."""
+    fn = _BOUND.get(name)
+    if fn is None:
+        source, argtypes = _ENTRY_POINTS[name]
+        fn = getattr(build.load(source), name)
+        fn.restype = _I
+        fn.argtypes = argtypes
+        _BOUND[name] = fn
+    return fn
 
 
 def _check_merge(qg, k_exec, v_exec, valid, est_logit, cs_e, vs_e):
@@ -121,14 +180,19 @@ def wave_attention_merge(qg, k_exec, v_exec, valid, est_logit, cs_e, vs_e, *,
     q = qg.to(f32).contiguous()
     ok = valid.bool().contiguous()
     el, cs, vs = (a.to(f32).contiguous() for a in (est_logit, cs_e, vs_e))
+    if vs.data_ptr() % 16:
+        raise ValueError("vs_e must be 16-byte aligned")
     out = torch.empty((B * H, G, hd), dtype=f32, device=dev)
+    grid = merge_grid(*args)
+    ws = _workspace(grid, G, hd, dev)
     use_cap = softcap is not None and softcap > 0
-    err = _merge_lib().wave_attention_merge(
+    err = _entry("wave_attention_merge")(
         STORE_DTYPES[k_exec.dtype], q.data_ptr(), k_exec.data_ptr(),
         v_exec.data_ptr(), ok.data_ptr(), el.data_ptr(), cs.data_ptr(),
-        vs.data_ptr(), out.data_ptr(), B * H, G, hd, T, E,
-        1.0 / math.sqrt(hd), float(softcap) if use_cap else 0.0,
-        int(use_cap), torch.cuda.current_stream(dev).cuda_stream)
+        vs.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(), B * H, G,
+        hd, T, E, grid["tiles_per_split"], 1.0 / math.sqrt(hd),
+        float(softcap) if use_cap else 0.0, int(use_cap),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wave_attention_merge kernel launch failed: "
                            f"cudaError {err}")
@@ -213,18 +277,21 @@ def paged_wave_attention(qg, sink_k, sink_v, local_k, local_v, local_pos,
     if hd > 256 or hd % 8 or (hd // 8) & (hd // 8 - 1):
         raise ValueError(f"kernel takes hd = 8 * 2^k <= 256, got {hd}")
     for name in ("sink_k", "sink_v", "local_k", "local_v", "k_store",
-                 "v_store"):
+                 "v_store", "vs_e"):
         if flat[name].data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
     out = torch.empty((B * H, G, hd), dtype=torch.float32, device=dev)
     S, Lb = flat["sink_k"].shape[1], flat["local_k"].shape[1]
     M, cap = flat["k_store"].shape[1:3]
     r, E = flat["idx_r"].shape[1], flat["vs_e"].shape[1]
+    grid = paged_grid(*args)
+    ws = _workspace(grid, G, hd, dev)
     use_cap = softcap is not None and softcap > 0
-    err = _lib().paged_wave_attention(
+    err = _entry("paged_wave_attention")(
         STORE_DTYPES[k_store.dtype],
         *(t.data_ptr() for t in flat.values()), out.data_ptr(),
-        B * H, G, hd, S, S, Lb, M, cap, r, E, 1.0 / math.sqrt(hd),
+        ws.data_ptr(), ws.numel(), B * H, G, hd, S, S, Lb, M, cap, r, E,
+        grid["tiles_per_split"], 1.0 / math.sqrt(hd),
         float(softcap) if use_cap else 0.0, int(use_cap),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -6,7 +6,10 @@ Port of ``repro/kernels/wave_attention/ref.py``:
   merge over a contiguous execution buffer, in f32 on upcast operands;
 * ``paged_wave_attention_torch`` twins the paged kernel: same arguments,
   same fold order (sink -> local buffer -> one retrieved cluster at a time
-  -> estimation finalize) and the same masking constants.
+  -> estimation finalize) and the same masking constants;
+* ``paged_walk``, ``attention_partial``, ``estimation_partial`` and
+  ``combine_partials`` spell out the kernels' split-and-combine algebra
+  (``csrc/wave_fold.cuh``) for the tests.
 
 The wrappers in ``ops.py`` run them for CPU tensors; ``chip_smoke.py``
 holds the CUDA kernels against them on the card.
@@ -34,6 +37,41 @@ def wave_attention_ref(q, k, v, valid, est_logit, cs, vs, *, softcap=None):
     return out[:, 0]
 
 
+def _fold(carry, q, k, v, ok, scale, softcap):
+    """Online-softmax accumulate of one (BH, T, hd) tile whose valid tokens
+    are ``ok`` (BH, T), in f32: the kernels' fold, masking constants and
+    all."""
+    m, l, acc = carry                               # (BH,G) (BH,G) (BH,G,hd)
+    f32 = torch.float32
+    s = torch.einsum("bgd,btd->bgt", q, k.to(f32)) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(ok[:, None, :], s, torch.full_like(s, NEG))
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    m_safe = torch.clamp(m_new, min=-1e20)
+    corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                       torch.zeros_like(m))
+    p = torch.exp(s - m_safe[..., None])
+    p = torch.where(ok[:, None, :], p, torch.zeros_like(p))
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum("bgt,btd->bgd", p, v.to(f32))
+    return m_new, l, acc
+
+
+def _empty_carry(BH, G, hd, device):
+    f32 = torch.float32
+    return (torch.full((BH, G), -math.inf, dtype=f32, device=device),
+            torch.zeros((BH, G), dtype=f32, device=device),
+            torch.zeros((BH, G, hd), dtype=f32, device=device))
+
+
+def _in_window(pos, rowb):
+    pos = pos.long()
+    lo = rowb[:, 0:1].long()                        # (BH, 1) excl lower bound
+    hi = rowb[:, 1:2].long()                        # (BH, 1) incl upper bound
+    return (pos >= 0) & (pos <= hi) & (pos > lo)
+
+
 def paged_wave_attention_torch(idx, rowb, live, q, sink_k, sink_v,
                                local_k, local_v, local_pos,
                                k_store, v_store, pos_store,
@@ -48,35 +86,14 @@ def paged_wave_attention_torch(idx, rowb, live, q, sink_k, sink_v,
     scale = 1.0 / math.sqrt(hd)
     f32 = torch.float32
     q = q.to(f32)
-    lo = rowb[:, 0:1].long()                        # (BH, 1) excl lower bound
-    hi = rowb[:, 1:2].long()                        # (BH, 1) incl upper bound
+    dev = q.device
+    carry = _empty_carry(BH, G, hd, dev)
 
     def fold(carry, k, v, pos, extra_ok=None):
-        """Online-softmax accumulate of one (BH, T, hd) tile."""
-        m, l, acc = carry                           # (BH,G) (BH,G) (BH,G,hd)
-        s = torch.einsum("bgd,btd->bgt", q, k.to(f32)) * scale
-        if softcap is not None:
-            s = softcap * torch.tanh(s / softcap)
-        pos = pos.long()
-        ok = (pos >= 0) & (pos <= hi) & (pos > lo)
+        ok = _in_window(pos, rowb)
         if extra_ok is not None:
             ok = ok & extra_ok
-        s = torch.where(ok[:, None, :], s, torch.full_like(s, NEG))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        m_safe = torch.clamp(m_new, min=-1e20)
-        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
-                           torch.zeros_like(m))
-        p = torch.exp(s - m_safe[..., None])
-        p = torch.where(ok[:, None, :], p, torch.zeros_like(p))
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bgt,btd->bgd", p,
-                                                   v.to(f32))
-        return m_new, l, acc
-
-    dev = q.device
-    carry = (torch.full((BH, G), -math.inf, dtype=f32, device=dev),
-             torch.zeros((BH, G), dtype=f32, device=dev),
-             torch.zeros((BH, G, hd), dtype=f32, device=dev))
+        return _fold(carry, q, k, v, ok, scale, softcap)
 
     sink_pos = torch.arange(sink_len, device=dev)[None, :].expand(BH, sink_len)
     carry = fold(carry, sink_k[:, :sink_len], sink_v[:, :sink_len], sink_pos)
@@ -99,6 +116,79 @@ def paged_wave_attention_torch(idx, rowb, live, q, sink_k, sink_v,
     w_num = torch.where(est_live, torch.exp(cs - m_fin[..., None]), zero)
     den = l * corr + w_den.sum(dim=-1)
     num = acc * corr[..., None] + torch.einsum("bge,bed->bgd", w_num, vs)
+    return num / torch.clamp(den, min=1e-30)[..., None]
+
+
+# --- the split kernels' algebra (csrc/wave_fold.cuh), for the tests -------
+
+def paged_walk(idx, rowb, live, sink_k, sink_v, local_k, local_v, local_pos,
+               k_store, v_store, pos_store, *, sink_len: int, tile=None):
+    """The paged kernel's walk as one token sequence, in its order (sink,
+    local buffer, then each retrieved cluster's block): (k, v, ok) of
+    shapes (BH, N, hd) x 2 and (BH, N). ``tile``: each zone padded with
+    masked tokens to whole tiles of that many tokens, as the kernel cuts
+    it."""
+    BH = idx.shape[0]
+    dev = idx.device
+    rows = torch.arange(BH, device=dev)
+    sink_pos = torch.arange(sink_len, device=dev)[None, :].expand(BH, sink_len)
+    zones = [(sink_k[:, :sink_len], sink_v[:, :sink_len],
+              _in_window(sink_pos, rowb)),
+             (local_k, local_v, _in_window(local_pos, rowb))]
+    for j in range(idx.shape[1]):
+        c = idx[:, j].long()
+        zones.append((k_store[rows, c], v_store[rows, c],
+                      _in_window(pos_store[rows, c], rowb)
+                      & (live[:, j] > 0)[:, None]))
+    if tile is not None:
+        pad = lambda a, n: torch.cat(
+            [a, a.new_zeros((BH, n) + a.shape[2:])], 1)
+        zones = [tuple(pad(a, -a.shape[1] % tile) for a in z) for z in zones]
+    return tuple(torch.cat(a, 1) for a in zip(*zones))
+
+
+def attention_partial(q, k, v, ok, *, softcap=None):
+    """The partial (m, l, acc) a split writes for tokens k/v (BH, T, hd)
+    with valid mask ok (BH, T): the fold from an empty carry. m is the m_safe
+    that l and acc are relative to, -inf where no token was valid."""
+    BH, G, hd = q.shape
+    q = q.to(torch.float32)
+    if k.shape[1] == 0:
+        return _empty_carry(BH, G, hd, q.device)
+    m, l, acc = _fold(_empty_carry(BH, G, hd, q.device), q, k, v, ok,
+                      1.0 / math.sqrt(hd), softcap)
+    any_ok = ok.any(dim=-1)[:, None]
+    m = torch.where(any_ok, torch.clamp(m, min=-1e20),
+                    torch.full_like(m, -math.inf))
+    return m, l, acc
+
+
+def estimation_partial(est_logit, cs, vs):
+    """The partial (m_e, den_e, num_e) a split writes for a chunk of the
+    estimation zone: est_logit/cs (BH, G, e), vs (BH, e, hd)."""
+    f32 = torch.float32
+    est_logit, cs, vs = est_logit.to(f32), cs.to(f32), vs.to(f32)
+    m = est_logit.amax(dim=-1)
+    live = est_logit > NEG / 2
+    zero = torch.zeros_like(est_logit)
+    den = torch.where(live, torch.exp(est_logit - m[..., None]), zero).sum(-1)
+    w = torch.where(live, torch.exp(cs - m[..., None]), zero)
+    return m, den, torch.einsum("bge,bed->bgd", w, vs)
+
+
+def combine_partials(parts):
+    """The combine kernel's log-sum-exp over split partials [(m, l, acc)]
+    (m, l: (BH, G); acc: (BH, G, hd)), in list order:
+    out = sum w acc / max(sum w l, 1e-30), w = exp(m_s - m) (0 where m_s is
+    -inf), m = max(-1e20, all m_s)."""
+    m = torch.stack([p[0] for p in parts]).amax(dim=0).clamp(min=-1e20)
+    num = torch.zeros_like(parts[0][2])
+    den = torch.zeros_like(parts[0][1])
+    for ms, ls, accs in parts:
+        w = torch.where(ms == -math.inf, torch.zeros_like(ms),
+                        torch.exp(ms - m))
+        num = num + w[..., None] * accs
+        den = den + w * ls
     return num / torch.clamp(den, min=1e-30)[..., None]
 
 

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain twins, on a CUDA card (marked
 ``cuda``; skipped without a card: a CUDA kernel has no CPU mode): the paged
-and the gathered-buffer wave attention, the block gather and the k-means
-step. Imports no JAX, so it also runs on a machine with the card and
-without JAX:
+and the gathered-buffer wave attention (including many splits, several
+tiles per split through the cp.async ring, an all-empty row, and the same
+bits from two calls), the block gather and the k-means step. Imports no
+JAX, so it also runs on a machine with the card and without JAX:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
 """
@@ -25,6 +26,13 @@ CASES = {
     "hd256_bf16": dict(SMALL, hd=256, cap=32, M=40),
     "G8_hd64": dict(SMALL, G=8, hd=64),
     "G1_dead_slot": dict(SMALL, G=1, r0=True),
+    # 1 + 63 + 12 tiles per row: one split per tile, ~80 splits per row
+    "many_splits": dict(SMALL, hd=64, lbuf=2000, r=12,
+                        local_len=(1500, 2000), q_pos=(2500, 2100)),
+    # 128 rows: eight tiles per split, walked through the two-stage ring
+    "ring_tps8_bf16": dict(SMALL, B=2, H=64, hd=64, lbuf=1024, e=290,
+                           local_len=(700, 1024), q_pos=(1500, 1100)),
+    "empty_row": dict(SMALL, empty_row=True),
 }
 
 
@@ -40,7 +48,14 @@ def cuda():
 @pytest.mark.parametrize("softcap", [None, 50.0])
 @pytest.mark.parametrize("case", list(CASES))
 def test_cuda_kernel_matches_twin(cuda, case, softcap):
-    args = [a.to(cuda) for a in random_decode_inputs(**CASES[case])]
+    kw = dict(CASES[case])
+    empty_row = kw.pop("empty_row", False)
+    args = [a.to(cuda) for a in random_decode_inputs(**kw)]
+    if empty_row:             # row (0, 0): no position passes, estimation dead
+        rowb, est = ops.ARG_NAMES.index("rowb"), ops.ARG_NAMES.index(
+            "est_logit")
+        args[rowb][0, 0, 0] = args[rowb][0, 0, 1]
+        args[est][0, 0] = -1e30
     before = ops.paged_wave_attention.launches
     out = ops.paged_wave_attention(*args, softcap=softcap)
     torch.cuda.synchronize()
@@ -49,6 +64,13 @@ def test_cuda_kernel_matches_twin(cuda, case, softcap):
     tol = 2e-5 * (1 + ref.abs().max().item())
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= tol
+    assert torch.equal(ops.paged_wave_attention(*args, softcap=softcap), out)
+    if empty_row:
+        assert (out[0, 0] == 0).all()
+    if case == "ring_tps8_bf16":
+        assert ops.paged_grid(*args)["tiles_per_split"] == ops.MAX_TPS
+    if case == "many_splits":
+        assert ops.paged_grid(*args)["splits"] >= 70
 
 
 def test_cpu_tensors_use_the_twin_without_counting():
@@ -68,6 +90,9 @@ MERGE_CASES = {
     "hd256_G4_T77": dict(MERGE_SMALL, hd=256, G=4, T=77, E=5),
     "G8_hd64_all_dead_est": dict(MERGE_SMALL, G=8, hd=64, dead_frac=1.0),
     "G1_empty_rows": dict(MERGE_SMALL, G=1, keep_min=0.0, seed=3),
+    "many_splits": dict(MERGE_SMALL, hd=64, T=3000, E=300),
+    "ring_tps8_bf16": dict(MERGE_SMALL, B=2, H=64, hd=64, T=1100, E=300),
+    "empty_row": dict(MERGE_SMALL, empty_row=True),
 }
 
 
@@ -75,7 +100,12 @@ MERGE_CASES = {
 @pytest.mark.parametrize("softcap", [None, 50.0])
 @pytest.mark.parametrize("case", list(MERGE_CASES))
 def test_cuda_merge_kernel_matches_twin(cuda, case, softcap):
-    args = [a.to(cuda) for a in random_merge_inputs(**MERGE_CASES[case])]
+    kw = dict(MERGE_CASES[case])
+    empty_row = kw.pop("empty_row", False)
+    args = [a.to(cuda) for a in random_merge_inputs(**kw)]
+    if empty_row:             # row (0, 0): no valid token, estimation dead
+        args[3][0, 0] = False
+        args[4][0, 0] = -1e30
     before = ops.wave_attention_merge.launches
     out = ops.wave_attention_merge(*args, softcap=softcap)
     torch.cuda.synchronize()
@@ -84,6 +114,13 @@ def test_cuda_merge_kernel_matches_twin(cuda, case, softcap):
     tol = 2e-5 * (1 + ref.abs().max().item())
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= tol
+    assert torch.equal(ops.wave_attention_merge(*args, softcap=softcap), out)
+    if empty_row:
+        assert (out[0, 0] == 0).all()
+    if case == "ring_tps8_bf16":
+        assert ops.merge_grid(*args)["tiles_per_split"] == ops.MAX_TPS
+    if case == "many_splits":
+        assert ops.merge_grid(*args)["splits"] >= 90
 
 
 @pytest.mark.cuda
