@@ -19,7 +19,16 @@
    (the gathered-buffer kernel), checks its launch count, holds the kernel
    and the block gather against their twins on captured launches, and
    compares the three impls' attention on the state the run leaves; then
-   profiles one decode step of that path.
+   profiles one decode step of that path;
+6. serves full-width gemma2-2b with its cluster stores in host memory
+   (``ServeEngine(offload=True, attn_impl="fused")``: the paged kernel reads
+   a device block cache of C + r slots through cache-slot ids), checks its
+   launch count, sizes and counters, holds the kernel against its twin on a
+   captured launch, runs the offload and the direct decode from one admitted
+   state (logits within the bf16 tolerance, see ``offload_vs_direct``),
+   breaks one offload decode step
+   down, and runs reduced gemma2-2b offload under a seeded fault profile on
+   the card and on the CPU (same tokens and counters, logits within 1e-3).
 
 Each attention kernel call is two launches (split, combine); on every
 captured launch the script prints the split grid (rows x splits), checks
@@ -588,6 +597,23 @@ def compare_impls(engine, layer, max_ctx, seed=7):
     return res
 
 
+def device_kernels(prof):
+    """(device us, name, count) of every device kernel a ``torch.profiler``
+    run saw, longest first (an aten op's row repeats the time of the
+    kernels it launched, so only device rows count)."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0.0) or \
+            getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0 and getattr(ev, "device_type", None) == cuda:
+            rows.append((dev_us, ev.key, ev.count))
+    if not rows:
+        raise AssertionError("profiler saw no device kernels")
+    return sorted(rows, reverse=True)
+
+
 def decode_breakdown(engine, max_ctx, steps=8):
     """Where one decode step's time goes, on the state the serve run left
     (both slots active): host time to enqueue a step, wall time of a synced
@@ -627,18 +653,7 @@ def decode_breakdown(engine, max_ctx, steps=8):
                 _, state = step(state)
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t0
-    # device kernels only: an aten op's row repeats the time of the kernels
-    # it launched
-    cuda = torch.autograd.DeviceType.CUDA
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0.0) or \
-            getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0 and getattr(ev, "device_type", None) == cuda:
-            rows.append((dev_us, ev.key, ev.count))
-    if not rows:
-        raise AssertionError("profiler saw no device kernels")
-    rows.sort(reverse=True)
+    rows = device_kernels(prof)
     busy_s = sum(r[0] for r in rows) / 1e6
     # each attention kernel call is a split and a combine launch, both named
     # after the kernel's tile source
@@ -738,6 +753,348 @@ def _row_cp(cp, b):
         state=type(st)(*(t[b:b + 1] for t in st)),
         stage_k=cp.stage_k[b:b + 1], stage_v=cp.stage_v[b:b + 1],
         staged=cp.staged[b:b + 1], seen=cp.seen[b:b + 1])
+
+
+# ---------------------------------------------------------------------------
+# host offload
+# ---------------------------------------------------------------------------
+
+def serve_offload(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
+                  chunk=256, batch=2, device="cuda", seed=0,
+                  min_capture_pos=4096):
+    """Drive the offload path: ServeEngine(offload=True) with the config's
+    cache fraction and policy; every kernel's launch count is set to 0 just
+    before the serve and read just after. Checks launches, requests, sizes
+    and the control plane's counters."""
+    import numpy as np
+    import torch
+    from repro_torch.core import attention
+    from repro_torch.core.wave_index import prefill_layout
+    from repro_torch.core.zones import plan_zones
+    from repro_torch.kernels.wave_attention import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = M.init_params(cfg, gen, device)
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32), m)
+            for n, m in zip(prompt_lens, new_tokens)]
+    engine = ServeEngine(cfg, params, prefill_chunk=chunk, device=device,
+                         attn_impl=attn_impl, offload=True)
+    cap = Capture(ops, attention, cfg.n_layers, cfg.layer_kinds(),
+                  min_capture_pos)
+    real_ops = attention.wa_ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                                # count this path only
+    attention.wa_ops = cap
+    try:
+        t0 = time.perf_counter()
+        m = engine.serve(reqs, batch_size=batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        attention.wa_ops = real_ops
+    counts = {k: fn.launches for k, fn in launch_counters().items()}
+    peak = torch.cuda.max_memory_allocated()
+    plane = engine.last_plane
+
+    want = {k: 0 for k in counts}
+    want[IMPL_KERNEL[attn_impl]] = cfg.n_layers * m.steps
+    if counts != want:
+        raise AssertionError(f"offload kernel launches {counts} for {m.steps}"
+                             f" steps x {cfg.n_layers} layers: want {want}")
+    for r in reqs:
+        if len(r.out_tokens) != r.max_new_tokens or r.status != "ok" or \
+                not all(0 <= t < cfg.vocab for t in r.out_tokens):
+            raise AssertionError(f"offload request: {len(r.out_tokens)}/"
+                                 f"{r.max_new_tokens} tokens ({r.status})")
+    plan = plan_zones(max(prompt_lens), cfg.retro, engine.gen_headroom)
+    want_C = max(1, min(int(engine.cache_frac * plan.m_max), plan.m_max))
+    if (plane.M, plane.r, plane.C) != (plan.m_max, plan.r, want_C):
+        raise AssertionError(f"plane sizes M {plane.M} r {plane.r} C "
+                             f"{plane.C}")
+    blk = plane.cache_k[0].shape
+    if tuple(blk) != (batch, cfg.n_kv_heads, plane.C + plane.r,
+                      cfg.retro.cluster_cap, cfg.head_dim):
+        raise AssertionError(f"device block cache {tuple(blk)}")
+    last = {r.slot: r for r in reqs}
+    kv = engine.last_state.kv
+    for slot, r in last.items():
+        want_cl = prefill_layout(len(r.prompt), cfg.retro)[2]
+        for st in kv:
+            if int(st.length[slot]) != len(r.prompt) + r.max_new_tokens or \
+                    int(st.n_clusters[slot]) != want_cl or \
+                    plane.ncl[slot] != want_cl:
+                raise AssertionError(f"offload slot {slot}: length "
+                                     f"{int(st.length[slot])}, clusters "
+                                     f"{int(st.n_clusters[slot])} / mirror "
+                                     f"{plane.ncl[slot]} (want {want_cl})")
+    if len(plane.timing["admit_s"]) != len(reqs) or \
+            plane.retired.lookups == 0:
+        raise AssertionError("a slot's buffers were not retired on reuse")
+    c = m.cache
+    if c.lookups == 0 or c.bytes_over_link == 0 or c.failed_fetches or \
+            m.degraded_steps:
+        raise AssertionError(f"offload counters {m.cache}")
+    host_bytes = sum(b.kv_host.nbytes for layer in plane.bufs
+                     for row in layer if row is not None for b in row)
+    cache_bytes = sum(t.numel() * t.element_size() for ts in
+                      (plane.cache_k, plane.cache_v, plane.cache_p)
+                      for t in ts)
+    res = dict(attn_impl=attn_impl, wall_s=wall, steps=m.steps,
+               launches=counts[IMPL_KERNEL[attn_impl]], all_launches=counts,
+               m_max=plane.M, r=plane.r, C=plane.C,
+               host_store_gb=host_bytes / 1e9,
+               device_cache_gb=cache_bytes / 1e9, peak_mem_gib=peak / 2**30,
+               admit_slot_s=plane.timing["admit_s"],
+               tokens_out=m.tokens_out, prefill_tps=m.prefill_tps,
+               decode_s=m.decode_s, decode_tps=m.decode_tps,
+               ttft_s=[r.ttft_s for r in reqs],
+               itl_p50_ms=m.itl_p50_s * 1e3, itl_p99_ms=m.itl_p99_s * 1e3,
+               hit_ratio=c.hit_ratio,
+               effective_hit_ratio=c.effective_hit_ratio,
+               bytes_over_link=c.bytes_over_link,
+               bytes_from_cache=c.bytes_from_cache,
+               retries=c.retries, degraded_steps=m.degraded_steps,
+               cache=dict(vars(c)))
+    log(f"  offload ({attn_impl}): m_max {plane.M}, r {plane.r}, C "
+        f"{plane.C}; block cache {tuple(blk)}; host store "
+        f"{res['host_store_gb']:.2f} GB packed f32 (both slots), device "
+        f"cache {res['device_cache_gb']:.3f} GB, peak device memory "
+        f"{res['peak_mem_gib']:.2f} GiB")
+    log(f"  decode steps {m.steps}, launches {counts} (= {cfg.n_layers} x "
+        f"steps of {IMPL_KERNEL[attn_impl]}); admit_slot s "
+        f"{['%.2f' % t for t in res['admit_slot_s']]}")
+    log(f"  TTFT s {['%.3f' % t for t in res['ttft_s']]}; prefill "
+        f"{res['prefill_tps']:.1f} tok/s; decode {res['decode_tps']:.2f} "
+        f"tok/s; ITL p50/p99 {res['itl_p50_ms']:.2f}/"
+        f"{res['itl_p99_ms']:.2f} ms; wall {wall:.1f} s")
+    log(f"  hit ratio {res['hit_ratio']:.4f} (effective "
+        f"{res['effective_hit_ratio']:.4f}), over the link "
+        f"{c.bytes_over_link / 1e6:.1f} MB, from the cache "
+        f"{c.bytes_from_cache / 1e6:.1f} MB, retries {c.retries}, "
+        f"degraded steps {m.degraded_steps}")
+    if "g" not in cap.taken:
+        raise AssertionError(f"captured launches {sorted(cap.taken)}")
+    return res, cap.taken, engine
+
+
+def _copy_state(state):
+    from repro_torch.core.wave_index import WaveState
+    from repro_torch.models.transformer import ServeState
+    return ServeState(kv=[WaveState(*(t.clone() for t in w))
+                          for w in state.kv])
+
+
+def offload_vs_direct(engine, max_ctx, steps=4):
+    """From copies of the state an offload serve left (the stores on the
+    device are the admitted ones: no flush ran), decode ``steps`` steps
+    through the direct ``apply_decode`` and through the serve's offload
+    plane. The payloads are the same bits, but the offload attend always
+    carries the retrieval cover, as the reference does: r gated entries
+    that add exact zeros yet lengthen the estimation fold, which changes
+    the f32 rounding of the attention, and a changed rounding of the bf16
+    residual stream is one bf16 ulp that later layers carry to the logits.
+    So the logits must agree within the reference kernel test's bf16
+    tolerance, |offload - direct| <= 3e-2 (1 + |direct|) elementwise
+    (tests/test_kernels.py:40). Returns the result and the offload copy of
+    the state."""
+    import numpy as np
+    import torch
+    from repro_torch.core.zones import plan_zones
+    from repro_torch.models import model as M
+    cfg, plane = engine.cfg, engine.last_plane
+    plan = plan_zones(max_ctx, cfg.retro, engine.gen_headroom)
+    direct, off = _copy_state(engine.last_state), \
+        _copy_state(engine.last_state)
+    B, dev = plane.B, engine.device
+    active = np.ones(B, bool)
+    act = torch.ones((B,), dtype=torch.bool, device=dev)
+    tok = torch.zeros((B,), dtype=torch.int32, device=dev)
+    worst, excess, same = 0.0, -1.0, True
+    with torch.inference_mode():
+        for _ in range(steps):
+            a, direct = M.apply_decode(engine.params, cfg, direct, tok,
+                                       plan=plan, active=act,
+                                       attn_impl=engine.attn_impl)
+            b, off = plane.decode_step(off, tok, active)
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                raise AssertionError("offload/direct logits not finite")
+            d = (a - b).abs()
+            worst = max(worst, d.max().item())
+            excess = max(excess, (d - 3e-2 * (1 + a.abs())).max().item())
+            same = same and bool(torch.equal(a, b))
+            tok = a.argmax(-1).to(torch.int32)
+    del direct
+    res = dict(steps=steps, max_abs_diff=worst, tol_excess=excess,
+               bit_identical=same)
+    log(f"  offload vs direct, {steps} steps from one state: logits max|d| "
+        f"{worst:.3e} (tol 3e-2 (1 + |direct|), worst excess {excess:.3e}), "
+        f"bit-identical {same}")
+    if not excess <= 0:
+        raise AssertionError(f"offload and direct logits differ: {res}")
+    return res, off
+
+
+def offload_breakdown(engine, state, steps=8):
+    """Where one offload decode step's time goes, both slots decoding: the
+    step's host time until ``decode_step`` returns, split into the per-layer
+    id-sync waits, the translate, the admission drain and the rest (host
+    enqueue of device work and glue); host->device bytes per step; the
+    synced wall; device kernel time by name from ``torch.profiler``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    plane = engine.last_plane
+    B = plane.B
+    tok = torch.zeros((B,), dtype=torch.int32, device=engine.device)
+    active = np.ones(B, bool)
+    tm = plane.timing
+    keys = ("sync_s", "translate_s", "drain_s", "h2d_bytes")
+
+    with torch.inference_mode():
+        for _ in range(2):
+            _, state = plane.decode_step(state, tok, active)
+        torch.cuda.synchronize()
+        before = {k: tm[k] for k in keys}
+        host, wall = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            _, state = plane.decode_step(state, tok, active)
+            host.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+        per = {k: (tm[k] - before[k]) / steps for k in keys}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                _, state = plane.decode_step(state, tok, active)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+    rows = device_kernels(prof)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    host_ms = 1e3 * sum(host) / steps
+    res = dict(step_host_ms=host_ms, step_wall_ms=1e3 * sum(wall) / steps,
+               id_sync_ms=1e3 * per["sync_s"],
+               translate_ms=1e3 * per["translate_s"],
+               drain_ms=1e3 * per["drain_s"],
+               enqueue_ms=host_ms - 1e3 * (per["sync_s"] + per["translate_s"]
+                                           + per["drain_s"]),
+               h2d_mb_per_step=per["h2d_bytes"] / 1e6,
+               profiled_step_ms=1e3 * prof_wall / steps,
+               device_busy_ms=1e3 * busy_s / steps,
+               device_busy_share=busy_s / prof_wall,
+               paged_ms_per_step=sum(us for us, k, _ in rows
+                                     if "PagedSrc" in k) / 1e3 / steps,
+               top_kernels=[dict(name=k[:90], ms_per_step=us / 1e3 / steps,
+                                 calls_per_step=c / steps)
+                            for us, k, c in rows[:10]])
+    log(f"  offload decode step (B={B}): host {res['step_host_ms']:.2f} ms "
+        f"= id-sync wait {res['id_sync_ms']:.2f} + translate "
+        f"{res['translate_ms']:.2f} + admission drain {res['drain_ms']:.2f} "
+        f"+ enqueue/glue {res['enqueue_ms']:.2f}; synced wall "
+        f"{res['step_wall_ms']:.2f} ms; host->device "
+        f"{res['h2d_mb_per_step']:.2f} MB per step; device busy "
+        f"{res['device_busy_ms']:.2f} ms ({100 * res['device_busy_share']:.1f}"
+        f"% of the profiled wall); paged kernel {res['paged_ms_per_step']:.3f}"
+        f" ms per step")
+    for k in res["top_kernels"]:
+        log(f"    {k['ms_per_step']:8.3f} ms/step {k['calls_per_step']:6.1f} "
+            f"calls  {k['name']}")
+    return res
+
+
+def _serve_summary(cfg, params, impl, device, **kw):
+    import numpy as np
+    from repro_torch.serving.engine import Request, ServeEngine
+    rng = np.random.default_rng(13)
+    reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32), m)
+            for n, m in ((384, 8), (256, 6), (320, 136))]
+    eng = ServeEngine(cfg, params, gen_headroom=256, max_context=384,
+                      prefill_chunk=96, attn_impl=impl, offload=True,
+                      device=device, **kw)
+    m = eng.serve(reqs, batch_size=2)
+    return dict(tokens=[r.out_tokens for r in reqs],
+                status=[r.status for r in reqs], steps=m.steps,
+                flushes=m.flushes, cache=dict(vars(m.cache)),
+                degraded=m.degraded_steps, dropped=m.dropped_cluster_steps)
+
+
+def _plane_logits(cfg, params, impl, device, steps=6, **kw):
+    """Two requests served directly, then ``steps`` offload decode steps
+    from an offload plane whose rows are admitted from that state."""
+    import numpy as np
+    import torch
+    from repro_torch.core.wave_index import WaveState
+    from repro_torch.models.transformer import ServeState
+    from repro_torch.serving.engine import Request, ServeEngine, _OffloadPlane
+    eng = ServeEngine(cfg, params, gen_headroom=256, max_context=384,
+                      prefill_chunk=96, attn_impl=impl, device=device, **kw)
+    rng = np.random.default_rng(1)
+    eng.serve([Request(rng.integers(0, cfg.vocab, n).astype(np.int32), 2)
+               for n in (384, 300)], batch_size=2)
+    st = eng.last_state
+    plane = _OffloadPlane(eng, 2, 384)
+    for i in range(2):
+        plane.admit_slot(i, ServeState(kv=[
+            WaveState(*(t[i:i + 1].clone() for t in w)) for w in st.kv]))
+    tok = torch.tensor([5, 7], dtype=torch.int32, device=device)
+    out = []
+    with torch.inference_mode():
+        for _ in range(steps):
+            lg, st = plane.decode_step(st, tok, np.ones(2, bool))
+            out.append(lg.float().cpu())
+            tok = lg.argmax(-1).to(torch.int32)
+    return torch.stack(out), plane.degraded_steps
+
+
+def reduced_offload_across_devices(attn_impl, seed=0, device="cuda"):
+    """Reduced gemma2-2b (untied head, so the greedy tokens vary) served
+    with offload under a seeded fault profile and a fetch deadline, on the
+    card and on the CPU: the same tokens, statuses and every wave-buffer
+    counter; then offload decode logits within 1e-3."""
+    import torch
+    from repro_torch.configs.gemma2_2b import reduced
+    from repro_torch.models import model as M
+    cfg = reduced().replace(tie_embeddings=False)
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    to = lambda t: {k: to(v) for k, v in t.items()} if isinstance(t, dict) \
+        else [to(v) for v in t] if isinstance(t, list) \
+        else t.to(device) if hasattr(t, "to") else t
+    card = to(cpu)
+    kw = dict(cache_frac=0.25, fault_profile="transient=0.2,spike=0.1,seed=3",
+              fetch_deadline_s=0.01)
+    want = _serve_summary(cfg, cpu, attn_impl, "cpu", **kw)
+    got = _serve_summary(cfg, card, attn_impl, device, **kw)
+    lg_cpu, deg_cpu = _plane_logits(cfg, cpu, attn_impl, "cpu", **kw)
+    lg_card, deg_card = _plane_logits(cfg, card, attn_impl, device, **kw)
+    err = (lg_card - lg_cpu).abs().max().item()
+    c = got["cache"]
+    res = dict(attn_impl=attn_impl, equal=got == want, logits_err=err,
+               steps=got["steps"], flushes=got["flushes"],
+               degraded=got["degraded"], dropped=got["dropped"],
+               faults=c["faults"], retries=c["retries"],
+               failed_fetches=c["failed_fetches"], lookups=c["lookups"],
+               hits=c["hits"], plane_degraded=(deg_cpu, deg_card))
+    log(f"  reduced offload ({attn_impl}), card vs cpu under "
+        f"'{kw['fault_profile']}', deadline {kw['fetch_deadline_s']}: tokens,"
+        f" statuses and counters equal {res['equal']} ({got['steps']} steps,"
+        f" {got['flushes']} flush(es), {c['lookups']} lookups, {c['hits']} "
+        f"hits, {c['faults']} faults, {c['retries']} retries, "
+        f"{c['failed_fetches']} failed fetches, {got['degraded']} degraded "
+        f"steps); logits max|d| {err:.3e} (tol 1e-3) over steps with "
+        f"{deg_card} degraded")
+    if not res["equal"]:
+        raise AssertionError(f"reduced offload differs across devices: "
+                             f"card {got} cpu {want}")
+    if not torch.isfinite(lg_card).all() or err > 1e-3 or \
+            deg_card != deg_cpu or got["degraded"] == 0:
+        raise AssertionError(f"reduced offload logits/degradation: {res}")
+    return res
 
 
 def main(argv=None):
@@ -853,6 +1210,31 @@ def main(argv=None):
     del engine5
     torch.cuda.empty_cache()
 
+    # ---- phase 6: host offload ---------------------------------------------
+    log("phase 6: serve gemma2-2b at full width with the cluster stores in "
+        "host memory (offload, attn_impl='fused')")
+    prompt_lens6 = (8192, 6000, 8192)
+    serve6, taken6, engine6 = serve_offload(CONFIG, prompt_lens6,
+                                            (48, 32, 40))
+    layer, args, softcap = taken6["g"]
+    offload_launch = compare(f"offload_captured_global_layer_{layer}", args,
+                             softcap, time_it=True)
+    offload_launch["bound_ms"], offload_launch["bound_by"] = \
+        kernel_bound(args)
+    offload_launch["block_store"] = list(args[6].shape)
+    log(f"    block store {tuple(args[6].shape)} (C + r slots), bound "
+        f"{offload_launch['bound_ms']:.4f} ms ({offload_launch['bound_by']})")
+    results["paged_wave_attention"].append(offload_launch)
+    del taken6, args
+    vs_direct, off_state = offload_vs_direct(engine6, max(prompt_lens6))
+    log("  offload decode-step breakdown (after the run, both slots "
+        "decoding)")
+    breakdown6 = offload_breakdown(engine6, off_state)
+    del engine6, off_state
+    torch.cuda.empty_cache()
+    red_offload = {impl: reduced_offload_across_devices(impl)
+                   for impl in ("fused", "pallas")}
+
     # the kernel line: launches on the path that runs the kernel (the serve
     # run of its impl; for the two kernels no serving path calls, one call
     # of their op entry point); times and bound at that path's captured
@@ -865,6 +1247,9 @@ def main(argv=None):
                     wave_attention_merge=serve5["launches"],
                     block_gather=gather["launches"],
                     kmeans_step=kmeans["launches"])
+    by_path = dict(paged_wave_attention=dict(
+        fused=serve["launches"], offload_fused=serve6["launches"]),
+        wave_attention_merge=dict(pallas=serve5["launches"]))
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = timed[name]
@@ -877,14 +1262,18 @@ def main(argv=None):
             tol=worst["tol"], worst_case=worst["case"], ms=t["ms"],
             kernel_ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=t.get("library_ms")))
+            library_ms=t.get("library_ms"),
+            launches_by_path=by_path.get(name, {})))
     if opts.json is not None:
         opts.json.parent.mkdir(parents=True, exist_ok=True)
         opts.json.write_text(json.dumps(dict(
             card=card, build_s=build_s, cases=results, serve=serve,
             decode_breakdown=breakdown, reduced_card_vs_cpu_err=red_err,
             serve_pallas=serve5, decode_breakdown_pallas=breakdown5,
-            impls=impls, kernels=kernels), indent=1))
+            impls=impls, serve_offload=serve6,
+            offload_vs_direct=vs_direct, decode_breakdown_offload=breakdown6,
+            reduced_offload_card_vs_cpu=red_offload, kernels=kernels),
+            indent=1))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

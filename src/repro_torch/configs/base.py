@@ -3,8 +3,10 @@
 Port of ``repro/configs/base.py`` (dataclasses only, no JAX). Field names,
 defaults and derived methods are kept identical so a test can compare the
 two packages field by field. ``attn_impl`` is the default decode-attention
-implementation ("jnp", "fused" or "pallas"), which engines and launchers may
-override per run; ``offload`` and the cache fields are not read yet.
+implementation ("jnp", "fused" or "pallas"); ``offload`` (host-offload
+serving), ``cache_clusters``, ``cache_frac`` and ``cache_policy`` (its
+device block cache) are the serve engine's defaults. Engines and launchers
+may override each per run.
 """
 from __future__ import annotations
 

@@ -12,9 +12,12 @@ implementations (``attn_impl``):
 * ``"fused"``: the zones handed unconcatenated to the paged kernel, which
   reads the retrieved clusters in place.
 
-``return_parts``, ``include_steady``, ``kv_src`` and the degraded-decode
-``valid``/``cover`` operands (sharding and offload) and
-``full_attention_decode`` are not ported yet.
+The host-offload hooks of the attend half are ported: ``kv_src`` (a device
+block cache addressed by cache-slot ids instead of the cluster stores),
+``valid`` (degraded decode: clusters whose fetch failed are masked out) and
+``cover`` (their mass re-enters through the estimation zone,
+``_retrieval_cover``). The sharding hooks ``return_parts`` and
+``include_steady`` and ``full_attention_decode`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -57,8 +60,11 @@ def rank_clusters(q_group, state: WaveState, plan: ZonePlan,
                          > (q_pos - window)[:, None, None])
     cs = torch.where(valid[:, :, None, :], cs, torch.full_like(cs, NEG))
     group_score = cs.amax(dim=2)                             # (B, Hkv, M)
-    _, idx_re = torch.topk(group_score, plan.r + plan.e, dim=-1)
-    return cs, idx_re
+    # lax.top_k's order: descending, equal scores (the NEG-masked clusters)
+    # by lower id, which a stable sort keeps; the offload path's cache
+    # lookups follow this order
+    _, order = torch.sort(group_score, dim=-1, descending=True, stable=True)
+    return cs, order[..., :plan.r + plan.e]
 
 
 def _take(a, idx):
@@ -107,6 +113,32 @@ def _estimation_zone(state: WaveState, cs, idx_r, idx_e, *,
     return est_logit, cs_e, vs_e
 
 
+def _retrieval_cover(state: WaveState, cs, idx_r):
+    """Estimation-zone cover of the retrieved clusters (degraded decode):
+    per retrieved cluster, the estimate of its STORED tokens,
+    ``cov_logit = cs + log(stored_eff)`` and ``cov_vs = vsum * stored_frac``
+    (the overflow share is left to ``_estimation_zone``'s overflow entry, so
+    the two together equal the whole cluster's estimate). Dead or empty
+    clusters get ``cov_logit = NEG``. Meta index only. Returns
+    ``(cov_logit (B,H,G,r), cs_r (B,H,G,r), cov_vs (B,H,r,hd))``."""
+    B, Hkv, G = cs.shape[:3]
+    r = idx_r.shape[2]
+    cs_r = torch.gather(cs, 3, idx_r[:, :, None, :].long()
+                        .expand(B, Hkv, G, r))
+    sz_r = _take(state.size, idx_r)
+    st_r = _take(state.stored, idx_r)
+    vs_r = _take(state.vsum, idx_r)
+    over = torch.clamp(sz_r - st_r, min=0).float()           # (B,H,r)
+    st_eff = sz_r.float() - over                             # stored part
+    frac = st_eff / torch.clamp(sz_r.float(), min=1.0)
+    log_st = torch.where(st_eff > 0, torch.log(torch.clamp(st_eff, min=1.0)),
+                         torch.full_like(st_eff, NEG))
+    cov_logit = torch.where(st_eff[:, :, None, :] > 0,
+                            cs_r + log_st[:, :, None, :],
+                            torch.full_like(cs_r, NEG))
+    return cov_logit, cs_r, vs_r * frac[..., None]
+
+
 def _local_positions(state: WaveState):
     """Absolute position of every local-buffer slot, -1 for empty. (B, lbuf)."""
     lbuf = state.local_k.shape[2]
@@ -135,10 +167,16 @@ def _gather_clusters(state: WaveState, idx):
 
 
 def _fused_wave_attention(qg, state: WaveState, idx_r, est_logit, cs_e, vs_e,
-                          *, window, softcap):
+                          *, window, softcap, kv_src=None, valid=None):
     """Hand the raw zones to the paged kernel: sink -> local buffer -> the r
-    retrieved clusters read in place -> estimation fold."""
+    retrieved clusters read in place -> estimation fold. ``kv_src``: optional
+    ``(k_blocks, v_blocks, pos_blocks)`` replacing the cluster stores as the
+    block source (``idx_r`` then holds its slot ids); ``valid``: optional
+    (B, Hkv, r) mask riding the kernel's ``live`` operand (a 0 cluster is
+    skipped like a dead slot)."""
     B, Hkv, G, hd = qg.shape
+    k_blk, v_blk, p_blk = kv_src if kv_src is not None else (
+        state.k_store, state.v_store, state.pos_store)
     r = idx_r.shape[2]
     dev = qg.device
     q_pos = state.length - 1                                  # (B,)
@@ -159,11 +197,12 @@ def _fused_wave_attention(qg, state: WaveState, idx_r, est_logit, cs_e, vs_e,
         live = torch.zeros((B, Hkv, 1), dtype=torch.int32, device=dev)
     else:
         idx_k = idx_r.to(torch.int32)
-        live = torch.ones((B, Hkv, r), dtype=torch.int32, device=dev)
+        live = valid.to(torch.int32) if valid is not None else \
+            torch.ones((B, Hkv, r), dtype=torch.int32, device=dev)
     return wa_ops.paged_wave_attention(
         qg.float().contiguous(), state.sink_k, state.sink_v, state.local_k,
-        state.local_v, local_pos.contiguous(), state.k_store, state.v_store,
-        state.pos_store, idx_k.contiguous(), live, rowb.contiguous(),
+        state.local_v, local_pos.contiguous(), k_blk, v_blk, p_blk,
+        idx_k.contiguous(), live.contiguous(), rowb.contiguous(),
         est_logit.contiguous(), cs_e.contiguous(), vs_e.float().contiguous(),
         softcap=softcap)
 
@@ -172,25 +211,28 @@ def wave_decode_rank(qg, state: WaveState, retro: RetroConfig, plan: ZonePlan,
                      *, window: Optional[float] = None,
                      softcap: Optional[float] = None,
                      use_estimation: bool = True,
-                     overflow_correction: bool = True):
+                     overflow_correction: bool = True,
+                     with_cover: bool = False):
     """Control-plane half of the decode step: rank clusters and build the
-    estimation-zone inputs from the meta index. Returns
-    (idx_r, est_logit, cs_e, vs_e)."""
+    estimation-zone inputs from the meta index (never the payload stores,
+    which the offload path keeps on the host). Returns
+    (idx_r, est_logit, cs_e, vs_e), plus the ``_retrieval_cover`` triple
+    with ``with_cover``."""
     cs, idx_re = rank_clusters(qg, state, plan, window, softcap)
     idx_r, idx_e = idx_re[:, :, :plan.r], idx_re[:, :, plan.r:]
     est_logit, cs_e, vs_e = _estimation_zone(
         state, cs, idx_r, idx_e, use_estimation=use_estimation,
         overflow_correction=overflow_correction)
+    if with_cover:
+        return idx_r, est_logit, cs_e, vs_e, _retrieval_cover(state, cs, idx_r)
     return idx_r, est_logit, cs_e, vs_e
 
 
-def _not_ported(*, kv_src, include_steady, return_parts, valid, cover):
-    """Raise on the reference's hooks for offload (``kv_src``, ``valid``,
-    ``cover``) and sharded retrieval (``include_steady``, ``return_parts``)."""
-    given = dict(kv_src=kv_src is not None,
-                 include_steady=include_steady is not True,
-                 return_parts=bool(return_parts), valid=valid is not None,
-                 cover=cover is not None)
+def _not_ported(*, include_steady, return_parts):
+    """Raise on the reference's sharded-retrieval hooks (``include_steady``,
+    ``return_parts``)."""
+    given = dict(include_steady=include_steady is not True,
+                 return_parts=bool(return_parts))
     given = [k for k, v in given.items() if v]
     if given:
         raise NotImplementedError(f"{', '.join(given)}: not ported yet")
@@ -203,21 +245,45 @@ def wave_attention_attend(q, state: WaveState, retro: RetroConfig,
                           include_steady=True, return_parts: bool = False,
                           valid=None, cover=None) -> WaveAttnOut:
     """Data-plane half: exact attention over the steady zone and the
-    ``idx``-addressed clusters, merged with the estimation zone."""
-    _not_ported(kv_src=kv_src, include_steady=include_steady,
-                return_parts=return_parts, valid=valid, cover=cover)
+    ``idx``-addressed clusters, merged with the estimation zone.
+
+    ``kv_src``: optional ``(k_blocks, v_blocks, pos_blocks)`` with leading
+    (B, Hkv, N) replacing the cluster stores (the offload path's device
+    block cache; ``idx`` then holds its slot ids). ``valid``: optional
+    (B, Hkv, r) mask: a 0 cluster is masked out of the retrieval zone and,
+    with ``cover`` (from ``wave_decode_rank(..., with_cover=True)``), its
+    mass re-enters through the estimation zone. An all-ones mask gates
+    every cover entry to (NEG, 0)."""
+    _not_ported(include_steady=include_steady, return_parts=return_parts)
     B, Hq, hd = q.shape
     Hkv = state.centroid.shape[1]
     qg = q.reshape(B, Hkv, Hq // Hkv, hd)
+    r = idx.shape[2]
     impl = resolve_attn_impl(impl)
+
+    # ---- degraded decode: estimation-cover the masked-out clusters ---------
+    if valid is not None and cover is not None and r > 0:
+        v_ok = valid > 0                                     # (B, Hkv, r)
+        cov_logit, cov_cs, cov_vs = cover
+        cov_logit = torch.where(v_ok[:, :, None, :],
+                                torch.full_like(cov_logit, NEG), cov_logit)
+        cov_vs = torch.where(v_ok[..., None], torch.zeros_like(cov_vs),
+                             cov_vs)
+        est_logit = torch.cat([est_logit, cov_logit], 3)
+        cs_e = torch.cat([cs_e, cov_cs], 3)
+        vs_e = torch.cat([vs_e, cov_vs], 2)
+
     if impl == "fused":
         out = _fused_wave_attention(qg, state, idx, est_logit, cs_e, vs_e,
-                                    window=window, softcap=softcap)
+                                    window=window, softcap=softcap,
+                                    kv_src=kv_src, valid=valid)
         return WaveAttnOut(out.reshape(B, Hq, hd).to(q.dtype), idx)
 
     # ---- execution buffer: steady zone + retrieved blocks ------------------
-    r = idx.shape[2]
-    kb, vb, pb = _gather_clusters(state, idx)                # (B,H,r,cap,hd)
+    if kv_src is None:
+        kb, vb, pb = _gather_clusters(state, idx)            # (B,H,r,cap,hd)
+    else:
+        kb, vb, pb = (_take(a, idx) for a in kv_src)
     cap = kb.shape[3]
     sink_pos = torch.arange(retro.sink, dtype=torch.int32, device=q.device)
     sink_pos = sink_pos.expand(B, Hkv, retro.sink)
@@ -235,6 +301,11 @@ def wave_attention_attend(q, state: WaveState, retro: RetroConfig,
     if window is not None:
         # the reference compares in f32 (int position - f32 window)
         ok = ok & (p_exec.float() > qp.float() - window)
+    if valid is not None and r > 0:        # degraded decode: mask failed
+        ret_ok = torch.repeat_interleave(valid > 0, cap, dim=2)
+        n_steady = p_exec.shape[2] - r * cap
+        ok = ok & torch.cat([torch.ones((B, Hkv, n_steady), dtype=torch.bool,
+                                        device=ok.device), ret_ok], 2)
     out = tripartite_merge(qg, k_exec, v_exec, ok, est_logit, cs_e, vs_e,
                            softcap=softcap, impl=impl)
     return WaveAttnOut(out.reshape(B, Hq, hd).to(q.dtype), idx)

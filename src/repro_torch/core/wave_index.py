@@ -1,7 +1,7 @@
 """Wave index: attention-aware cluster index over the KV cache (paper Sec. 4.2).
 
-Port of ``repro/core/wave_index.py`` (direct store; ``prefill_build`` and
-the host-offload helpers are not ported yet). Per attention layer the state
+Port of ``repro/core/wave_index.py`` (``prefill_build`` and ``maybe_flush``
+are not ported yet). Per attention layer the state
 holds, for every (batch, kv_head): fixed-capacity cluster stores, the meta
 index (centroid, value sum, size), the sink zone and a local-window buffer
 that doubles as the staging area of decode-time clustering.
@@ -109,7 +109,9 @@ def _write_clusters(state: WaveState, res: ClusterResult, offset,
                     rows: Optional[torch.Tensor] = None) -> WaveState:
     """Write a block of freshly clustered segments at per-row cluster
     ``offset`` (B,), in place. ``rows``: optional (B,) bool — unselected rows
-    keep their old bits (their slots are rewritten with what they held)."""
+    keep their old bits (their slots are rewritten with what they held).
+    ``None`` payload stores (the host-offload live view) are skipped: only
+    the meta index is written."""
     B, _, M = state.size.shape
     k_new = res.size.shape[2]
     dev = state.size.device
@@ -118,6 +120,8 @@ def _write_clusters(state: WaveState, res: ClusterResult, offset,
     idx = off[:, None] + torch.arange(k_new, device=dev)             # (B, k)
     bidx = torch.arange(B, device=dev)[:, None]
     for f in STORE_FIELDS:
+        if getattr(state, f) is None:                    # host-resident store
+            continue
         dst = getattr(state, f).transpose(1, 2)          # (B, M, H, ...) view
         new = getattr(res, f).transpose(1, 2).to(dst.dtype)
         if rows is not None:
@@ -312,6 +316,18 @@ def flush_segment(state: WaveState, retro: RetroConfig,
     into new clusters and slide the remaining ``local`` tokens to the front.
     ``rows`` (default: buffer full) selects the rows; the rest keep their
     bits. Writes in place."""
+    return flush_segment_offload(state, retro, rows=rows)[0]
+
+
+def flush_segment_offload(state: WaveState, retro: RetroConfig,
+                          rows: Optional[torch.Tensor] = None
+                          ) -> Tuple[WaveState, ClusterResult]:
+    """``flush_segment`` that also returns the freshly clustered
+    ``ClusterResult`` of every row (callers apply ``rows`` themselves). The
+    host-offload configuration passes a state whose payload stores are
+    ``None``: only the meta index is written, and the returned blocks are
+    what the host control plane appends at each flushed row's old
+    ``n_clusters`` offset."""
     useg = retro.update_segment
     lbuf = local_buffer_size(retro)
     if rows is None:
@@ -325,4 +341,5 @@ def flush_segment(state: WaveState, retro: RetroConfig,
     _roll_rows(state.local_k, useg, rows)
     _roll_rows(state.local_v, useg, rows)
     return state._replace(
-        local_len=torch.where(rows, state.local_len - useg, state.local_len))
+        local_len=torch.where(rows, state.local_len - useg,
+                              state.local_len)), res

@@ -3,7 +3,7 @@ the port. Port of ``repro/launch/serve.py`` (chunked admission only).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_2b \
         --device cuda --requests 4 --batch 2 --prompt-lens 8192,6000 \
-        --new-tokens 32 --stagger 8
+        --new-tokens 32 --stagger 8 [--offload --cache-frac 0.2]
 """
 from __future__ import annotations
 
@@ -39,6 +39,30 @@ def main(argv=None):
                          "Default: the config's retro.attn_impl")
     ap.add_argument("--prefill-chunk", type=int, default=256,
                     help="chunked-admission tokens per scheduler iteration")
+    ap.add_argument("--offload", action="store_true",
+                    help="host-offload wave buffer (paper Sec. 4.3): the "
+                         "cluster payload stores live in host memory; decode "
+                         "retrieval reads a device block cache through "
+                         "cache-slot ids, misses fetched from the host")
+    ap.add_argument("--cache-frac", type=float, default=None,
+                    help="device block-cache size as a fraction of the "
+                         "cluster store (offload; at least one slot). "
+                         "Default: the config's retro.cache_frac")
+    ap.add_argument("--cache-policy", default=None,
+                    choices=["lru", "fifo", "clock"],
+                    help="block-cache replacement policy (offload)")
+    ap.add_argument("--fault-profile", default=None,
+                    help="inject link faults into the offload miss fetches, "
+                         "e.g. 'transient=0.2,corrupt=0.01,spike=0.1,seed=3' "
+                         "(seeded; per-attempt probabilities). A failed "
+                         "fetch is masked out of the retrieval zone and "
+                         "covered by the estimation zone")
+    ap.add_argument("--fetch-deadline", type=float, default=None,
+                    help="per-translate virtual fetch budget in seconds; "
+                         "overdue misses degrade instead of stalling")
+    ap.add_argument("--fetch-retries", type=int, default=2,
+                    help="bounded retries per miss fetch (exponential "
+                         "virtual backoff)")
     ap.add_argument("--max-decode-steps", type=int, default=None,
                     help="per-request watchdog: finish a request with "
                          "status='timeout' after this many decode steps")
@@ -52,7 +76,12 @@ def main(argv=None):
     lens = [int(x) for x in args.prompt_lens.split(",")]
     engine = ServeEngine(cfg, params, gen_headroom=512,
                          prefill_chunk=args.prefill_chunk,
-                         attn_impl=args.attn_impl,
+                         attn_impl=args.attn_impl, offload=args.offload,
+                         cache_frac=args.cache_frac,
+                         cache_policy=args.cache_policy,
+                         fault_profile=args.fault_profile,
+                         fetch_deadline_s=args.fetch_deadline,
+                         fetch_retries=args.fetch_retries,
                          max_decode_steps=args.max_decode_steps, device=dev)
     rng = np.random.default_rng(args.seed)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab, lens[i % len(lens)])
@@ -60,12 +89,26 @@ def main(argv=None):
                     max_new_tokens=args.new_tokens + i * args.stagger)
             for i in range(args.requests)]
     m = engine.serve(reqs, batch_size=args.batch)
-    print(f"served {len(reqs)} requests on {args.batch} slots (retro, "
+    print(f"served {len(reqs)} requests on {args.batch} slots (retro"
+          f"{'+offload' if engine.offload else ''}, "
           f"chunked admission, {engine.attn_impl} attention, {dev}): "
           f"prefill {m.prefill_s:.2f}s, "
           f"decode {m.tokens_out} tokens @ {m.decode_tps:.1f} tok/s, "
           f"slot occupancy {m.slot_occupancy:.2f}, "
           f"itl p50/p99 {m.itl_p50_s * 1e3:.1f}/{m.itl_p99_s * 1e3:.1f} ms")
+    if engine.offload:
+        c = m.cache
+        print(f"  wave buffer: hit {c.hit_ratio:.3f} "
+              f"(effective {c.effective_hit_ratio:.3f}, "
+              f"{c.pending_hits} pending hits), "
+              f"link {c.bytes_over_link / 2**20:.1f} MiB, "
+              f"cache {c.bytes_from_cache / 2**20:.1f} MiB")
+        if args.fault_profile or c.faults or m.degraded_steps:
+            print(f"  link faults: {c.faults} faults, {c.retries} retries, "
+                  f"{c.corrupt_fetches} corrupt, "
+                  f"{c.failed_fetches} failed fetches; "
+                  f"{m.degraded_steps}/{m.steps} degraded steps "
+                  f"({m.dropped_cluster_steps} cluster-steps dropped)")
     for i, r in enumerate(reqs):
         status = "" if r.status == "ok" else f" [{r.status}]"
         print(f"  req {i}: prompt {len(r.prompt)}, out {len(r.out_tokens)}, "

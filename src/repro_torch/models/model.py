@@ -9,6 +9,7 @@ dense family, retro runtime with chunked admission:
                                attn_impl=...)
     state       = flush_state(cfg, state)
     state       = make_serve_state(cfg, B, seq_len, device=...)
+    supports_offload(cfg), offload_decode_fns(cfg)   # host-offload decode
 
 Other families raise ``NotImplementedError``.
 """
@@ -81,6 +82,23 @@ def apply_decode(params, cfg: ModelConfig, state, token, *,
         plan = plan_zones(seq_len, cfg.retro, gen_headroom)
     return transformer.decode_step(params, cfg, state, token, plan=plan,
                                    active=active, attn_impl=attn_impl)
+
+
+def supports_offload(cfg: ModelConfig, runtime: str = "retro") -> bool:
+    """The host-offload wave buffer needs cluster stores to offload: the
+    retro runtime on an attention family (the port has the dense one)."""
+    return runtime == "retro" and cfg.family in PORTED_FAMILIES
+
+
+def offload_decode_fns(cfg: ModelConfig):
+    """The pieces of the offload decode step: ``(embed, rank, attend,
+    unembed, flush)`` (``transformer.offload_decode_rank`` /
+    ``offload_decode_attend`` / ``offload_flush``). The engine owns the
+    control plane between the two halves."""
+    _dense_only(cfg)
+    return (transformer.decode_embed, transformer.offload_decode_rank,
+            transformer.offload_decode_attend, transformer.decode_unembed,
+            transformer.offload_flush)
 
 
 def flush_state(cfg: ModelConfig, state, rows=None):

@@ -2,10 +2,11 @@
 
 Port of ``repro/models/transformer.py``, dense family only: init, chunked
 prefill (exact chunk attention against an admission cache while the wave
-index is built incrementally), its finalize, and the retro decode step
-with any of the decode-attention impls (``attn_impl``: "jnp", "fused",
-"pallas"). The JAX layer scan becomes a Python loop over per-layer
-parameter dicts and per-layer states.
+index is built incrementally), its finalize, the retro decode step with any
+of the decode-attention impls (``attn_impl``: "jnp", "fused", "pallas"),
+and the two halves of the host-offload decode layer with its flush. The JAX
+layer scan becomes a Python loop over per-layer parameter dicts and
+per-layer states.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as wa
 from repro_torch.core.wave_index import (WaveState, append_token,
+                                         flush_segment_offload,
                                          init_chunked_prefill, init_wave_state,
                                          prefill_append_chunk, prefill_finalize,
                                          scatter_chunk_rows)
@@ -239,6 +241,104 @@ def decode_step(params, cfg: ModelConfig, state: ServeState, token, *,
         kv.append(lstate)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, cfg, x), ServeState(kv=kv)
+
+
+# ---------------------------------------------------------------------------
+# Host-offload decode: the cluster PAYLOAD stores (k/v/pos_store) live on the
+# host; the device keeps the meta index and steady zones ("live" fields) and
+# a block cache. One decode layer is two halves with the control plane
+# (cluster id -> cache slot, miss fetch, deferred admissions) in between:
+#
+#   rank:   qkv + local append + centroid ranking + estimation build
+#           -> retrieved cluster ids (the engine reads them back per layer)
+#   attend: attention over [device block cache | miss staging tail] through
+#           the translated slot ids, then output projection + FFN
+#
+# The same math as ``decode_step``: block payloads are the same bits.
+# ---------------------------------------------------------------------------
+
+PAYLOAD_FIELDS = ("k_store", "v_store", "pos_store")
+LIVE_FIELDS = tuple(f for f in WaveState._fields if f not in PAYLOAD_FIELDS)
+# the fields a decode step changes (the rank half's local append)
+HOT_FIELDS = ("sink_k", "sink_v", "local_k", "local_v", "local_len", "length")
+
+
+def live_wave_state(live: Dict[str, torch.Tensor]) -> WaveState:
+    """WaveState view over the device-resident fields of the offload
+    configuration; the payload stores are ``None``."""
+    return WaveState(k_store=None, v_store=None, pos_store=None, **live)
+
+
+def decode_embed(params, cfg: ModelConfig, token):
+    """token: (B,) int32 -> (B, D) embedded decode input."""
+    return embed_tokens(params, cfg, token)
+
+
+def decode_unembed(params, cfg: ModelConfig, x):
+    """(B, D) final hidden -> (B, V) logits (final norm + unembed)."""
+    return unembed(params, cfg, L.rms_norm(x, params["final_norm"],
+                                           cfg.norm_eps))
+
+
+def offload_decode_rank(lp, window, cfg: ModelConfig, live: Dict, x, *,
+                        plan: ZonePlan, active: Optional[torch.Tensor] = None):
+    """Control-plane half of one offload decode layer. Returns
+    ``(ctx, idx_r, new_live)``: ``idx_r`` (B, Hkv, r) are the retrieved
+    cluster ids the engine translates into cache slots; ``ctx`` carries the
+    query, the estimation inputs and the retrieval cover to
+    :func:`offload_decode_attend`."""
+    a, retro = cfg.attn, cfg.retro
+    B = x.shape[0]
+    lstate = live_wave_state(live)
+    pos = lstate.length                                      # (B,)
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = L.attention_qkv(lp["attn"], h[:, None, :], a.n_heads,
+                              a.n_kv_heads, a.head_dim, pos[:, None],
+                              a.rope_theta)
+    q, k, v = q[:, 0], k[:, 0], v[:, 0]                      # (B, H*, hd)
+    lstate = append_token(lstate, k, v, active=active)
+    qg = q.reshape(B, a.n_kv_heads, a.n_heads // a.n_kv_heads, a.head_dim)
+    idx_r, est_logit, cs_e, vs_e, cover = wa.wave_decode_rank(
+        qg, lstate, retro, plan, window=window, softcap=a.softcap,
+        with_cover=True)
+    ctx = (q, est_logit, cs_e, vs_e, cover)
+    return ctx, idx_r, {f: getattr(lstate, f) for f in LIVE_FIELDS}
+
+
+def offload_decode_attend(lp, window, cfg: ModelConfig, live: Dict, x, ctx,
+                          cache_k, cache_v, cache_pos, idx_slots, valid, *,
+                          plan: ZonePlan, attn_impl: Optional[str] = None):
+    """Data-plane half: attention over the steady zone and the slot-addressed
+    blocks of the device cache (hits) and its staging tail (misses), then
+    output projection + FFN. ``valid`` (B, Hkv, r) int32: 0 marks a cluster
+    whose fetch failed this step (masked out, covered by the estimation
+    zone). Returns the next hidden state."""
+    a, retro = cfg.attn, cfg.retro
+    impl = wa.resolve_attn_impl(attn_impl or retro.attn_impl)
+    B = x.shape[0]
+    q, est_logit, cs_e, vs_e, cover = ctx
+    out = wa.wave_attention_attend(
+        q, live_wave_state(live), retro, plan, idx_slots, est_logit, cs_e,
+        vs_e, kv_src=(cache_k, cache_v, cache_pos), window=window,
+        softcap=a.softcap, impl=impl, valid=valid, cover=cover).out
+    x = x + out.reshape(B, -1) @ lp["attn"]["wo"]
+    h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + _ffn(lp, h, cfg)
+
+
+def offload_flush(cfg: ModelConfig, lives: List[Dict], rows):
+    """Index update of the offload path: per layer, cluster the oldest
+    update segment into meta entries on the device and return the payload
+    blocks for the host stores. ``rows``: (B,) bool. Returns (new live
+    dicts, one ``ClusterResult`` per layer with leading (B, H, k_new));
+    the blocks of unflushed rows must be ignored."""
+    new, blocks = [], []
+    for lv in lives:
+        st, res = flush_segment_offload(live_wave_state(lv), cfg.retro,
+                                        rows=rows)
+        new.append({f: getattr(st, f) for f in LIVE_FIELDS})
+        blocks.append(res)
+    return new, blocks
 
 
 def init_serve_state(cfg: ModelConfig, B: int, seq_len: int, *,

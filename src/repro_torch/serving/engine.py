@@ -1,10 +1,9 @@
 """Continuous-batching serving engine with chunked admission and a decode
 loop that reads ids back once per step, one step late.
 
-Port of ``repro/serving/engine.py`` (retro runtime, direct store, chunked
-admission, every decode-attention impl; blocking admission,
-``runtime="full"``, the host-offload plane and ``run_wave`` are not ported
-yet).
+Port of ``repro/serving/engine.py`` (retro runtime, chunked admission,
+every decode-attention impl, the direct store and the host-offload plane;
+blocking admission, ``runtime="full"`` and ``run_wave`` are not ported yet).
 
 The decode loop runs a fixed number of slots. A request's prompt is consumed
 one fixed-size chunk per scheduler iteration, interleaved between decode
@@ -15,13 +14,21 @@ Decode sampling stays on device: step t's ids are copied to pinned host
 memory behind an event and harvested after step t+1 has been enqueued, so
 completion is detected one step late (the speculative extra token of a
 finished request is dropped). Staging-buffer flushes are per-row masked.
+
+Host-offload mode (``offload=True``, paper Sec. 4.3): the cluster payload
+stores live on the host behind per-(layer, slot, kv-head) ``WaveBuffer``s,
+and decode attention reads a per-layer device block cache through cache-slot
+ids: hits from the cache, misses fetched from the host into a per-step
+staging tail, cache admissions deferred off the hot path. The decode loop
+then reads the retrieved ids back once per layer (the paper's CPU control
+plane). See ``_OffloadPlane``.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,9 +36,14 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import resolve_attn_impl
+from repro_torch.core.wave_buffer import (BufferStats, FatalTransportError,
+                                          FaultProfile, FaultyTransport,
+                                          LinkTransport, WaveBuffer)
 from repro_torch.core.wave_index import local_buffer_size
 from repro_torch.core.zones import plan_zones
 from repro_torch.models import model as M
+from repro_torch.models.transformer import (HOT_FIELDS, LIVE_FIELDS,
+                                            ServeState, torch_dtype)
 
 
 @dataclass
@@ -43,7 +55,8 @@ class Request:
     # ---- filled by the engine ----
     ttft_s: float = 0.0                 # enqueue -> first token
     decode_tps: float = 0.0             # this request's decode tokens/s
-    status: str = "ok"                  # "ok" | "timeout"
+    # "ok" | "timeout" (watchdog) | "error" (unrecoverable link fault)
+    status: str = "ok"
     slot: int = -1                      # decode slot that served it
 
 
@@ -62,10 +75,68 @@ class ServeMetrics:
     request_tps: List[float] = field(default_factory=list)
     # gaps between consecutive token deliveries of continuing requests
     step_s: List[float] = field(default_factory=list)
+    # host-offload wave-buffer counters, summed over every per-row buffer
+    # (retired ones included); zero unless the engine runs with offload
+    cache: BufferStats = field(default_factory=BufferStats)
+    # degraded decode: steps with >= 1 cluster masked out of the retrieval
+    # zone (its fetch failed), and the cluster-step drop count
+    degraded_steps: int = 0
+    dropped_cluster_steps: int = 0
 
     @property
     def decode_tps(self) -> float:
         return self.tokens_out / max(self.decode_s, 1e-9)
+
+    # -- the wave-buffer counters, read from ``cache``
+    @property
+    def cache_lookups(self) -> int:
+        return self.cache.lookups
+
+    @property
+    def cache_hits(self) -> int:
+        return self.cache.hits
+
+    @property
+    def cache_pending_hits(self) -> int:
+        return self.cache.pending_hits
+
+    @property
+    def bytes_over_link(self) -> int:
+        return self.cache.bytes_over_link
+
+    @property
+    def bytes_from_cache(self) -> int:
+        return self.cache.bytes_from_cache
+
+    @property
+    def bytes_from_pending(self) -> int:
+        return self.cache.bytes_from_pending
+
+    @property
+    def cache_faults(self) -> int:
+        return self.cache.faults
+
+    @property
+    def cache_retries(self) -> int:
+        return self.cache.retries
+
+    @property
+    def cache_corrupt_fetches(self) -> int:
+        return self.cache.corrupt_fetches
+
+    @property
+    def cache_failed_fetches(self) -> int:
+        return self.cache.failed_fetches
+
+    @property
+    def cache_hit_ratio(self) -> float:
+        return self.cache.hit_ratio
+
+    @property
+    def effective_cache_hit_ratio(self) -> float:
+        """Counts pending hits (repeat misses served without a second link
+        transfer) as hits."""
+        return self.cache.effective_hit_ratio
 
     @property
     def prefill_tps(self) -> float:
@@ -138,18 +209,369 @@ def graft(big, small, slot: int):
     return big
 
 
+def _pack(k, v, p):
+    """Device blocks -> packed f32 payload rows ``[K | V | pos]``:
+    (..., m, cap, hd) x2 + (..., m, cap) -> (..., m, 2 cap hd + cap). Exact
+    for bf16/f32 stores and integer positions."""
+    lead = k.shape[:-2]
+    return torch.cat([k.float().reshape(lead + (-1,)),
+                      v.float().reshape(lead + (-1,)), p.float()], -1)
+
+
+class _OffloadPlane:
+    """Host control plane of one offload ``serve`` call (paper Sec. 4.3).
+
+    The cluster PAYLOAD stores live on the host, one ``WaveBuffer`` per
+    (layer, slot, kv-head) row over packed f32 payload rows ``[K | V | pos]``
+    (the reference's layout: exact for bf16/f32 stores and integer
+    positions, so cache placement is bit-transparent). The device keeps, per
+    layer, a block cache of ``C + r`` slots: slots [0, C) mirror each row's
+    ``WaveBuffer.cache`` and the tail r slots stage the step's misses. Each
+    decode step runs per layer:
+
+      rank (device) -> id readback -> translate ids through the mapping
+      tables (hits -> cache slots, misses -> staging slots, miss payloads
+      fetched from the host store) -> cache update (device: the previous
+      step's deferred admissions + this step's misses) -> attend (device,
+      slot-addressed) -> ``apply_updates`` (host, off the hot path; the
+      admissions reach the device cache at the next step's cache update).
+
+    Layer-pipelined as in the reference: right after layer l's attend is
+    enqueued, layer l+1's rank is enqueued and its id copy started (a pinned
+    buffer behind an event); only then does layer l's admission drain run
+    on the host, so the id wait overlaps the drain. Host->device traffic is
+    the translated slot ids and validity mask, and only the payload rows
+    that change the cache (fetched misses, admissions): the staging tail is
+    reset on the device, then the fetched rows are written at their slots,
+    which leaves the same cache as the reference's whole-tail restage.
+    Every layer attends with the mask and the retrieval cover, as the
+    reference does, so a row's logits never depend on another row's faults.
+    Every dispatch / host op / sync calls ``trace`` (a no-op), in the
+    reference's program order. ``timing`` sums the host's time per piece.
+    """
+
+    def trace(self, op: str, layer: int, kind: str, step: int,
+              **extras) -> None:
+        """Schedule-event hook, one call per dispatch / host op / sync in
+        program order; a no-op."""
+
+    def __init__(self, engine: "ServeEngine", B: int, max_ctx: int):
+        cfg = engine.cfg
+        self.dev = engine.device
+        plan = plan_zones(max_ctx, cfg.retro, engine.gen_headroom)
+        self.L, self.B, self.H = cfg.n_layers, B, cfg.n_kv_heads
+        self.M = plan.m_max
+        self.r = max(plan.r, 1)             # staging tail (dead slot if r=0)
+        self.C = engine._resolve_cache_clusters(self.M)
+        self.policy = engine.cache_policy
+        C, r, cap, dev = self.C, self.r, cfg.retro.cluster_cap, self.dev
+        self.cache_k = [torch.zeros((B, self.H, C + r, cap, cfg.head_dim),
+                                    dtype=torch_dtype(cfg), device=dev)
+                        for _ in range(self.L)]
+        self.cache_v = [torch.zeros_like(c) for c in self.cache_k]
+        self.cache_p = [torch.full((B, self.H, C + r, cap), -1,
+                                   dtype=torch.int32, device=dev)
+                        for _ in range(self.L)]
+        # per (layer, slot, head) host buffer; None until the slot is admitted
+        self.bufs: List[List[Optional[List[WaveBuffer]]]] = [
+            [None] * B for _ in range(self.L)]
+        # per-layer queued device mirror of deferred admissions, as host
+        # ((3, n) [row, head, slot] ids, (n, D) rows); None = nothing queued
+        self.pending_adm: List[Optional[Tuple[np.ndarray, np.ndarray]]] = \
+            [None] * self.L
+        self.ncl = np.zeros(B, np.int64)    # host mirror of n_clusters
+        self.retired = BufferStats()        # stats of replaced slot caches
+        self._step = -1                     # schedule epoch for trace events
+        # ONE transport per plane, shared by every buffer: the control plane
+        # is single-threaded, so a seeded FaultyTransport yields one
+        # reproducible fault schedule per serve
+        self.transport = (FaultyTransport(engine.fault_profile)
+                          if engine.fault_profile is not None
+                          else LinkTransport())
+        self.fetch_retries = engine.fetch_retries
+        self.fetch_backoff_s = engine.fetch_backoff_s
+        self.fetch_deadline_s = engine.fetch_deadline_s
+        self.degraded_steps = 0             # steps with >= 1 masked cluster
+        self.dropped_cluster_steps = 0      # cluster-step masked count
+        self.failed_slots: Dict[int, str] = {}   # slot -> fatal fault message
+        self.timing = dict(steps=0, sync_s=0.0, translate_s=0.0,
+                           drain_s=0.0, h2d_bytes=0, admit_s=[])
+        self.cfg, self.params, self.plan = cfg, engine.params, plan
+        self.attn_impl = engine.attn_impl
+        (self._embed, self._rank, self._attend, self._unembed,
+         self._flush) = M.offload_decode_fns(cfg)
+
+    def _h2d(self, a: np.ndarray) -> torch.Tensor:
+        """Host array -> device, counted in ``timing["h2d_bytes"]``."""
+        self.timing["h2d_bytes"] += a.nbytes
+        return to_device(a, self.dev)
+
+    def _scatter(self, l, ids_rows) -> None:
+        """Write host packed rows ``((3, n) [row, head, slot] ids, (n, D)
+        rows)`` into layer ``l``'s device cache. Every id is in range: the
+        control plane never builds the out-of-range ids that the reference
+        writes and XLA drops (an out-of-range index faults in torch)."""
+        ids, rows = ids_rows
+        b, h, s = self._h2d(ids).long()
+        rows = self._h2d(rows)
+        n = rows.shape[0]
+        cap, hd = self.cfg.retro.cluster_cap, self.cfg.head_dim
+        ck, cv, cp = self.cache_k[l], self.cache_v[l], self.cache_p[l]
+        ck[b, h, s] = rows[:, :cap * hd].reshape(n, cap, hd).to(ck.dtype)
+        cv[b, h, s] = rows[:, cap * hd:2 * cap * hd] \
+            .reshape(n, cap, hd).to(cv.dtype)
+        cp[b, h, s] = rows[:, 2 * cap * hd:].to(cp.dtype)
+
+    def _restage(self, l, miss) -> None:
+        """Restage layer ``l``'s tail [C, C + r): emptied, then this step's
+        fetched misses written at their slots."""
+        C = self.C
+        self.cache_k[l][:, :, C:].zero_()
+        self.cache_v[l][:, :, C:].zero_()
+        self.cache_p[l][:, :, C:].fill_(-1)
+        if miss is not None:
+            self._scatter(l, miss)
+
+    # ----------------------------------------------------------- admission
+    def admit_slot(self, i: int, st1) -> None:
+        """Offload a freshly admitted request's cluster stores: slot ``i``'s
+        payload blocks, packed on the device, copied to the host once per
+        request; fresh mapping tables (the previous occupant's cache entries
+        die with it; its stats are retired into the engine aggregate)."""
+        self._step += 1
+        self.trace("admit_slot", -1, "host", self._step)
+        t0 = time.perf_counter()
+        self.ncl[i] = int(st1.kv[0].n_clusters[0])
+        for l in range(self.L):
+            st = st1.kv[l]
+            host = _pack(st.k_store[0], st.v_store[0],
+                         st.pos_store[0]).cpu().numpy()      # (H, M, D)
+            old = self.bufs[l][i]
+            if old is not None:
+                for buf in old:
+                    self.retired.merge(buf.stats)
+            self.bufs[l][i] = [
+                WaveBuffer(host[h], cache_clusters=self.C,
+                           policy=self.policy, transport=self.transport,
+                           max_retries=self.fetch_retries,
+                           backoff_s=self.fetch_backoff_s)
+                for h in range(self.H)]
+            # drop queued admissions aimed at the replaced slot's caches
+            if self.pending_adm[l] is not None:
+                ids, rows = self.pending_adm[l]
+                keep = ids[0] != i
+                self.pending_adm[l] = (ids[:, keep], rows[keep])
+        self.timing["admit_s"].append(time.perf_counter() - t0)
+
+    # ------------------------------------------------------- control plane
+    def _translate(self, l, ids, active):
+        """Cluster ids -> cache-slot ids; fetch the miss payloads.
+
+        Ids of not-yet-live clusters (>= the row's ``n_clusters`` mirror)
+        never touch the wave buffer: fetching them would admit an
+        all-masked payload that a later flush would turn into a stale hit.
+        They map to their staging slot, whose empty payload (``pos = -1``)
+        masks them as the direct path does.
+
+        Returns ``(slots_valid, miss)``: ``slots_valid`` (2, B, H, r) int32
+        holds the slot ids and the validity mask (0 marks a live cluster
+        whose fetch failed its retries or deadline this step; the attend
+        covers its mass with the estimation zone); ``miss`` is ``((3, n)
+        [row, head, staging slot], (n, D) payload rows)`` or None. A
+        :class:`FatalTransportError` marks the whole slot failed
+        (``failed_slots``); the serve loop finishes that request with
+        ``status="error"``.
+        """
+        B, H, r = ids.shape
+        sv = np.zeros((2, B, H, r), np.int32)
+        idx_slots, valid = sv[0], sv[1]
+        valid[:] = 1
+        if r == 0:      # steady-zone-only plan: attend pads its own dead slot
+            return sv, None
+        stage = self.C + np.arange(r)
+        mb, mh, ms, rows = [], [], [], []
+        for b in range(B):
+            if not active[b] or self.bufs[l][b] is None \
+                    or b in self.failed_slots:
+                continue
+            dead = ids[b] >= self.ncl[b]                    # (H, r)
+            for h in range(H):
+                buf = self.bufs[l][b][h]
+                live_j = np.where(~dead[h])[0]
+                idx_slots[b, h] = stage                     # default: staging
+                if len(live_j) == 0:
+                    continue
+                try:
+                    slot, hit, payload, ok = buf.translate(
+                        ids[b, h, live_j], deadline_s=self.fetch_deadline_s)
+                except FatalTransportError as e:
+                    # only this slot dies; its staged defaults self-mask and
+                    # the request finishes before its token is harvested
+                    self.failed_slots[b] = str(e)
+                    break
+                idx_slots[b, h, live_j] = np.where(hit, slot, stage[live_j])
+                valid[b, h, live_j[~ok]] = 0
+                self.dropped_cluster_steps += int((~ok).sum())
+                fetched = ~hit & ok
+                if fetched.any():
+                    j = live_j[fetched]
+                    mb.append(np.full(len(j), b))
+                    mh.append(np.full(len(j), h))
+                    ms.append(stage[j])
+                    rows.append(payload[fetched])
+        if not rows:
+            return sv, None
+        return sv, (np.stack([np.concatenate(mb), np.concatenate(mh),
+                              np.concatenate(ms)]), np.concatenate(rows))
+
+    def _drain_admissions(self, l, active) -> bool:
+        """Apply deferred WaveBuffer admissions (off the attend hot path) and
+        queue their device-cache mirror for the next step's cache update. A
+        warm step with no admission queues None, and the next update skips
+        the mirror. Returns whether anything was queued."""
+        ab, ah, a_s, rows = [], [], [], []
+        for b in range(self.B):
+            if not active[b] or self.bufs[l][b] is None:
+                continue
+            for h in range(self.H):
+                for vict, _ids, payload in self.bufs[l][b][h].apply_updates():
+                    ab.append(np.full(len(vict), b))
+                    ah.append(np.full(len(vict), h))
+                    a_s.append(vict)
+                    rows.append(payload)
+        self.pending_adm[l] = None if not rows else (
+            np.stack([np.concatenate(ab), np.concatenate(ah),
+                      np.concatenate(a_s)]), np.concatenate(rows))
+        return self.pending_adm[l] is not None
+
+    # ------------------------------------------------------------- decode
+    def _launch_rank(self, l, kv, x, act_dev, t):
+        """Enqueue layer ``l``'s rank and start its retrieved-id copy to the
+        host (non-blocking); the matching wait is at this layer's turn in
+        ``decode_step``."""
+        live = {f: getattr(kv[l], f) for f in LIVE_FIELDS}
+        self.trace("rank_fn", l, "dispatch", t)
+        ctx, idx_r, live = self._rank(
+            self.params["layers"][l], self.params["window"][l], self.cfg,
+            live, x, plan=self.plan, active=act_dev)
+        self.trace("readback_start", l, "host", t)
+        return ctx, _Readback(idx_r), live
+
+    def decode_step(self, state, tokens_dev, active):
+        """One decode step over the slot batch, layer-pipelined (see the
+        class docstring). Returns (device logits, new state)."""
+        self._step += 1
+        t = self._step
+        tm = self.timing
+        tm["steps"] += 1
+        drops_before = self.dropped_cluster_steps
+        self.trace("embed_tokens", -1, "dispatch", t)
+        x = self._embed(self.params, self.cfg, tokens_dev)
+        act_dev = self._h2d(active)
+        kv = list(state.kv)
+        nxt = self._launch_rank(0, kv, x, act_dev, t)
+        for l in range(self.L):
+            ctx, readback, live = nxt
+            # the paper's CPU control plane needs the retrieved ids on the
+            # host; their copy started when the rank was enqueued
+            self.trace("readback_ids", l, "sync", t)
+            t0 = time.perf_counter()
+            ids = readback.get()
+            t1 = time.perf_counter()
+            self.trace("translate", l, "host", t)
+            sv, miss = self._translate(l, ids, active)
+            tm["sync_s"] += t1 - t0
+            tm["translate_s"] += time.perf_counter() - t1
+            if self.pending_adm[l] is None:     # warm cache: staging only
+                self.trace("cache_stage", l, "dispatch", t)
+            else:       # the previous step's admissions mirror into [0, C)
+                self.trace("cache_upd", l, "dispatch", t)
+                self._scatter(l, self.pending_adm[l])
+            self._restage(l, miss)
+            sv = self._h2d(sv)
+            self.trace("attend_fn", l, "dispatch", t)
+            x = self._attend(
+                self.params["layers"][l], self.params["window"][l], self.cfg,
+                live, x, ctx, self.cache_k[l], self.cache_v[l],
+                self.cache_p[l], sv[0], sv[1], plan=self.plan,
+                attn_impl=self.attn_impl)
+            kv[l] = kv[l]._replace(**{f: live[f] for f in HOT_FIELDS})
+            if l + 1 < self.L:      # pipeline: next rank before this drain
+                nxt = self._launch_rank(l + 1, kv, x, act_dev, t)
+            t0 = time.perf_counter()
+            queued = self._drain_admissions(l, active)   # off the hot path
+            tm["drain_s"] += time.perf_counter() - t0
+            self.trace("drain_admissions", l, "host", t, queued=queued)
+        self.trace("unembed_logits", -1, "dispatch", t)
+        logits = self._unembed(self.params, self.cfg, x)
+        if self.dropped_cluster_steps > drops_before:
+            self.degraded_steps += 1
+        return logits, ServeState(kv=kv)
+
+    # -------------------------------------------------------------- flush
+    def flush(self, state, rows):
+        """Decode-time index update: meta entries on the device, payload
+        blocks appended to the host stores at each flushed row's cluster
+        offset (through ``store_rows``, which refreshes the checksums)."""
+        self._step += 1                 # own schedule epoch (between steps)
+        kv = state.kv
+        lives = [{f: getattr(st, f) for f in LIVE_FIELDS} for st in kv]
+        self.trace("offload_flush", -1, "dispatch", self._step)
+        new_lives, res = self._flush(self.cfg, lives, self._h2d(rows))
+        flushed = np.where(rows)[0]
+        sel = self._h2d(flushed)
+        self.trace("readback_flush", -1, "sync", self._step)
+        blocks = torch.stack([_pack(c.k_store, c.v_store, c.pos_store)[sel]
+                              for c in res]).cpu().numpy()
+        self.trace("host_flush", -1, "host", self._step)
+        k_new = blocks.shape[3]                   # (L, rows, H, k_new, D)
+        for j, b in enumerate(flushed):
+            off = int(self.ncl[b])
+            for l in range(self.L):
+                if self.bufs[l][b] is None:
+                    continue
+                for h in range(self.H):
+                    self.bufs[l][b][h].store_rows(off, blocks[l, j, h])
+            self.ncl[b] += k_new
+        return ServeState(kv=[st._replace(**nl)
+                              for st, nl in zip(kv, new_lives)])
+
+    # ------------------------------------------------------------- stats
+    def export_stats(self, metrics: "ServeMetrics") -> None:
+        metrics.cache.merge(self.retired)
+        for per_layer in self.bufs:
+            for row in per_layer:
+                if row is not None:
+                    for buf in row:
+                        metrics.cache.merge(buf.stats)
+        metrics.degraded_steps += self.degraded_steps
+        metrics.dropped_cluster_steps += self.dropped_cluster_steps
+
+
 class ServeEngine:
     """``serve(requests, batch_size)`` — continuous scheduler over a slot
     batch. ``max_context`` pins the decode geometry (zone plan, cluster-store
     capacity); a request's outputs do not depend on what shares the batch.
     ``attn_impl`` selects the decode-attention implementation ("jnp"
     reference, "fused" paged kernel, "pallas" gathered-buffer kernel); None
-    defers to ``cfg.retro.attn_impl``. ``device`` defaults to ``cuda`` and
-    raises when there is no card."""
+    defers to ``cfg.retro.attn_impl``. ``offload`` (None: the config's)
+    serves with the cluster stores in host memory behind a device block
+    cache of ``cache_clusters`` slots (or ``cache_frac`` of the store) under
+    ``cache_policy``; ``fault_profile`` (a ``FaultProfile`` or a spec such
+    as "transient=0.2,seed=3"), ``fetch_deadline_s``, ``fetch_retries`` and
+    ``fetch_backoff_s`` shape its miss fetches. ``device`` defaults to
+    ``cuda`` and raises when there is no card."""
 
     def __init__(self, cfg: ModelConfig, params, *, gen_headroom: int = 1024,
                  max_context: Optional[int] = None,
                  prefill_chunk: int = 256, attn_impl: Optional[str] = None,
+                 offload: Optional[bool] = None,
+                 cache_clusters: Optional[int] = None,
+                 cache_frac: Optional[float] = None,
+                 cache_policy: Optional[str] = None,
+                 fault_profile: Optional[Any] = None,
+                 fetch_deadline_s: Optional[float] = None,
+                 fetch_retries: int = 2, fetch_backoff_s: float = 1e-3,
                  max_decode_steps: Optional[int] = None, device=None):
         self.device = resolve_device(device)
         M._dense_only(cfg)
@@ -160,6 +582,30 @@ class ServeEngine:
         self.max_context = max_context
         self.prefill_chunk = max(1, prefill_chunk)
         self.max_decode_steps = max_decode_steps
+        retro = cfg.retro
+        self.offload = retro.offload if offload is None else offload
+        if self.offload and not M.supports_offload(cfg):
+            raise ValueError("host-offload serving requires the retro "
+                             f"runtime on an attention family, got "
+                             f"family={cfg.family!r}")
+        self.cache_clusters = retro.cache_clusters if cache_clusters is None \
+            else cache_clusters
+        self.cache_frac = retro.cache_frac if cache_frac is None \
+            else cache_frac
+        self.cache_policy = cache_policy or retro.cache_policy
+        if isinstance(fault_profile, str):
+            fault_profile = FaultProfile.parse(fault_profile)
+        self.fault_profile = fault_profile
+        self.fetch_deadline_s = fetch_deadline_s
+        self.fetch_retries = fetch_retries
+        self.fetch_backoff_s = fetch_backoff_s
+
+    def _resolve_cache_clusters(self, m_max: int) -> int:
+        """Device block-cache slots: the absolute override or a fraction of
+        the cluster-store size, clamped to [1, m_max]."""
+        c = self.cache_clusters if self.cache_clusters > 0 \
+            else int(self.cache_frac * m_max)
+        return max(1, min(c, m_max))
 
     @staticmethod
     def _sample_dev(logits) -> torch.Tensor:
@@ -185,6 +631,7 @@ class ServeEngine:
         state = M.make_serve_state(cfg, B, max_ctx,
                                    gen_headroom=self.gen_headroom, device=dev)
         lbuf = local_buffer_size(cfg.retro)
+        plane = _OffloadPlane(self, B, max_ctx) if self.offload else None
 
         queue = deque(requests)
         slots: List[Optional[Request]] = [None] * B
@@ -241,6 +688,8 @@ class ServeEngine:
                 if adm.consumed >= L:
                     st1 = M.finalize_prefill_chunk(cfg, adm.cstate, total_len=L)
                     state = graft(state, st1, i)
+                    if plane is not None:       # device->host store offload
+                        plane.admit_slot(i, st1)
                     adm.cstate = None
                     admitting[i] = None
                     completed.append((i, adm))
@@ -278,9 +727,14 @@ class ServeEngine:
             t0 = time.perf_counter()
             cur = None
             if active.any():
-                logits, state = M.apply_decode(
-                    self.params, cfg, state, tokens_dev, plan=plan,
-                    active=to_device(active, dev), attn_impl=self.attn_impl)
+                if plane is not None:
+                    logits, state = plane.decode_step(state, tokens_dev,
+                                                      active)
+                else:
+                    logits, state = M.apply_decode(
+                        self.params, cfg, state, tokens_dev, plan=plan,
+                        active=to_device(active, dev),
+                        attn_impl=self.attn_impl)
                 new_sampled = self._sample_dev(logits)   # device, no sync
                 cur = _Readback(new_sampled)
                 snapshot = [slots[i] if active[i] else None for i in range(B)]
@@ -288,6 +742,13 @@ class ServeEngine:
                 metrics.occupied_slot_steps += int(active.sum())
                 staged[active] += 1
                 slot_steps[active] += 1
+                # unrecoverable link fault: finish only the affected requests
+                # (their in-flight token is dropped by the lagged harvest)
+                if plane is not None and plane.failed_slots:
+                    for i in sorted(plane.failed_slots):
+                        if slots[i] is not None:
+                            finish(i, slots[i], status="error")
+                    plane.failed_slots.clear()
                 if self.max_decode_steps is not None:
                     for i in range(B):
                         if active[i] and slot_steps[i] >= self.max_decode_steps:
@@ -320,8 +781,14 @@ class ServeEngine:
             # ---- per-row masked index update (off the per-step hot path) ---
             if (staged >= lbuf).any():
                 rows = staged >= lbuf
-                state = M.flush_state(cfg, state)
+                if plane is not None:
+                    state = plane.flush(state, rows)
+                else:
+                    state = M.flush_state(cfg, state)
                 metrics.flushes += 1
                 staged[rows] -= cfg.retro.update_segment
-        self.last_state = state             # inspection hook (tests, smoke)
+        if plane is not None:
+            plane.export_stats(metrics)
+        self.last_plane = plane             # inspection hooks (tests, smoke)
+        self.last_state = state
         return metrics
