@@ -8,13 +8,17 @@
    the card, at full-width gemma2-2b decode shapes and on edge cases;
 2b. holds the gathered-buffer wave-attention kernel, the block gather and
    the k-means step against their twins on full-width synthetic cases;
+2c. holds both attention kernels against their twins at the decode shapes
+   of minitron-8b (8 KV heads, G 4, hd 128) and gemma3-1b (one KV head,
+   G 4, hd 256, window 512);
 3. serves full-width gemma2-2b (bf16, random weights from a seed) through
    ``ServeEngine(attn_impl="fused")`` — chunked admission, the wave index,
    decode through the paged kernel and a decode-time flush — and checks the
    kernel launch count; then checks the kernel against its twin on inputs
    captured from one local-layer and one global-layer launch of that run;
 4. checks the reduced model's logits on the card against the same model
-   run on the CPU (plain twins), for the "fused" and "pallas" impls;
+   run on the CPU (plain twins), for the "fused" and "pallas" impls, for
+   blocking admission, and for ``runtime="full"`` (chunked and blocking);
 5. serves full-width gemma2-2b through ``ServeEngine(attn_impl="pallas")``
    (the gathered-buffer kernel), checks its launch count, holds the kernel
    and the block gather against their twins on captured launches, and
@@ -28,7 +32,22 @@
    state (logits within the bf16 tolerance, see ``offload_vs_direct``),
    breaks one offload decode step
    down, and runs reduced gemma2-2b offload under a seeded fault profile on
-   the card and on the CPU (same tokens and counters, logits within 1e-3).
+   the card and on the CPU (same tokens and counters, logits within 1e-3);
+7. serves full-width gemma2-2b with blocking admission
+   (``ServeEngine(admission="blocking")``: one prefill per request, the
+   wave index built by ``prefill_build``) through the paged kernel, checks
+   ``prefill_build`` against the chunked builder bit for bit on the card,
+   blocking against chunked first-token logits (the same greedy token in
+   bf16; within 1e-3 (1 + |chunked|) in f32), and serves one request
+   through block-sparse prefill (logits correlated with dense);
+8. serves full-width gemma2-2b through ``runtime="full"`` (a dense KV cache
+   and exact attention, the paper's comparator), chunked and blocking:
+   no kernel launches, every layer's ``full_attention_decode`` against an
+   f32 softmax, the decode-step breakdown, and the end-to-end numbers of
+   every served path side by side;
+9. serves full-width minitron-8b (hd 128, G 4, untied head) through the
+   paged kernel, checks its launch count and lengths, and times a captured
+   launch against its bound.
 
 Each attention kernel call is two launches (split, combine); on every
 captured launch the script prints the split grid (rows x splits), checks
@@ -452,12 +471,15 @@ IMPL_KERNEL = {"fused": "paged_wave_attention",
                "pallas": "wave_attention_merge"}
 
 
-def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl, chunk=256,
+def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
+                    runtime="retro", admission="chunked", chunk=256,
                     batch=2, device="cuda", seed=0, min_capture_pos=4096,
                     want_flush=True):
-    """Drive the port's main path: ServeEngine with chunked admission and
-    decode through ``attn_impl`` ("fused" or "pallas"); every kernel's
-    launch count is set to 0 just before and read just after."""
+    """Drive the port's main path: ServeEngine with ``admission``
+    ("chunked" or "blocking") and ``runtime`` ("retro": decode through
+    ``attn_impl``, "fused" or "pallas"; "full": the dense cache, no kernel);
+    every kernel's launch count is set to 0 just before and read just
+    after."""
     import numpy as np
     import torch
     from repro_torch.core import attention
@@ -477,7 +499,8 @@ def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl, chunk=256,
     reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32), m)
             for n, m in zip(prompt_lens, new_tokens)]
     engine = ServeEngine(cfg, params, prefill_chunk=chunk, device=device,
-                         attn_impl=attn_impl)
+                         attn_impl=attn_impl, runtime=runtime,
+                         admission=admission)
     if engine.attn_impl != attn_impl:
         raise AssertionError(f"engine resolved {engine.attn_impl}")
     cap = Capture(ops, attention, cfg.n_layers, cfg.layer_kinds(),
@@ -500,10 +523,12 @@ def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl, chunk=256,
         attention._gather_clusters = cap.real_gather
     counts = {k: fn.launches for k, fn in launch_counters().items()}
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    path = IMPL_KERNEL[attn_impl] if runtime == "retro" else None
 
     # --- what came out ---
     want = {k: 0 for k in counts}
-    want[IMPL_KERNEL[attn_impl]] = cfg.n_layers * m.steps
+    if path is not None:
+        want[path] = cfg.n_layers * m.steps
     if counts != want:
         raise AssertionError(f"kernel launches {counts} for {m.steps} decode "
                              f"steps x {cfg.n_layers} layers: want {want}")
@@ -529,28 +554,30 @@ def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl, chunk=256,
                                            // retro.avg_cluster)
         for st in kv:
             got_len = int(st.length[slot])
-            got_cl = int(st.n_clusters[slot])
+            got_cl = int(st.n_clusters[slot]) if runtime == "retro" \
+                else want_clusters
             if got_len != want_len or got_cl != want_clusters:
                 raise AssertionError(
                     f"slot {slot}: length {got_len} (want {want_len}), "
                     f"clusters {got_cl} (want {want_clusters})")
-    res = dict(attn_impl=attn_impl, wall_s=wall, steps=m.steps,
-               launches=counts[IMPL_KERNEL[attn_impl]], all_launches=counts,
+    res = dict(attn_impl=attn_impl, runtime=runtime, admission=admission,
+               arch=cfg.arch_id, wall_s=wall, steps=m.steps,
+               launches=counts[path] if path else 0, all_launches=counts,
                flushes=m.flushes, tokens_out=m.tokens_out,
                prefill_tokens=m.prefill_tokens, prefill_s=m.prefill_s,
                prefill_tps=m.prefill_tps, decode_s=m.decode_s,
                decode_tps=m.decode_tps, ttft_s=[r.ttft_s for r in reqs],
                itl_p50_ms=m.itl_p50_s * 1e3, itl_p99_ms=m.itl_p99_s * 1e3,
                peak_mem_gib=peak / 2**30)
-    log(f"  {attn_impl}: decode steps {m.steps}, launches {counts} "
-        f"(= {cfg.n_layers} x steps of {IMPL_KERNEL[attn_impl]}), flushes "
-        f"{m.flushes}")
+    log(f"  {cfg.arch_id} {runtime}/{admission}/{attn_impl}: decode steps "
+        f"{m.steps}, launches {counts} (= {cfg.n_layers} x steps of "
+        f"{path}), flushes {m.flushes}")
     log(f"  TTFT s {['%.3f' % t for t in res['ttft_s']]}; prefill "
         f"{res['prefill_tps']:.1f} tok/s; decode {res['decode_tps']:.2f} "
         f"tok/s; ITL p50/p99 {res['itl_p50_ms']:.2f}/"
         f"{res['itl_p99_ms']:.2f} ms; peak mem "
         f"{res['peak_mem_gib']:.2f} GiB; wall {wall:.1f} s")
-    if set(cap.taken) != {"l", "g"}:
+    if path is not None and set(cap.taken) != set(cfg.layer_kinds()):
         raise AssertionError(f"captured launches {sorted(cap.taken)}")
     return res, cap.taken, engine
 
@@ -630,7 +657,8 @@ def decode_breakdown(engine, max_ctx, steps=8):
     act = torch.ones((B,), dtype=torch.bool, device="cuda")
 
     def step(st):
-        lg, st = M.apply_decode(engine.params, cfg, st, tok, plan=plan,
+        lg, st = M.apply_decode(engine.params, cfg, st, tok,
+                                runtime=engine.runtime, plan=plan,
                                 active=act, attn_impl=engine.attn_impl)
         return lg.argmax(-1), st
 
@@ -697,10 +725,11 @@ def _leaves(tree):
         yield tree
 
 
-def reduced_across_devices(attn_impl, seed=0, device="cuda"):
+def reduced_across_devices(attn_impl, runtime="retro", admission="chunked",
+                           seed=0, device="cuda"):
     """The reduced model on the card (kernel) vs on the CPU (twin): chunked
-    prefill of two ragged prompts then six decode steps through
-    ``attn_impl``; logits agree."""
+    or blocking prefill of two ragged prompts, then six decode steps under
+    ``runtime`` (retro: through ``attn_impl``); logits agree."""
     import numpy as np
     import torch
     from repro_torch.configs.gemma2_2b import reduced
@@ -718,30 +747,46 @@ def reduced_across_devices(attn_impl, seed=0, device="cuda"):
     steps = rng.integers(0, cfg.vocab, (6, 2)).astype(np.int64)
     plan = plan_zones(320, cfg.retro, 256)
     for dev, params in (("cpu", cpu), (device, to(cpu))):
+        def decode(st, rows):
+            out = []
+            for t in range(6):
+                lg, st = M.apply_decode(
+                    params, cfg, st, torch.from_numpy(steps[t, rows]).to(dev),
+                    runtime=runtime, plan=plan, attn_impl=attn_impl)
+                out.append(lg.float().cpu())
+            return out
+
+        if admission == "blocking":
+            lg, st = M.apply_prefill(
+                params, cfg, {"tokens": torch.from_numpy(toks).to(dev)},
+                runtime=runtime, plan=plan, gen_headroom=256,
+                lengths=torch.from_numpy(lens).to(dev), cache_len=320 + 256)
+            runs[dev] = torch.stack([lg.float().cpu()]
+                                    + decode(st, slice(0, 2)))
+            continue
         cs = M.make_prefill_chunk_state(cfg, 2, 320, chunk=64,
-                                        gen_headroom=256, device=dev)
+                                        runtime=runtime, gen_headroom=256,
+                                        device=dev)
         for c0 in range(0, 320, 64):
             cl = torch.from_numpy(np.clip(lens - c0, 0, 64)).to(dev)
             _, cs = M.apply_prefill_chunk(
                 params, cfg, {"tokens": torch.from_numpy(toks[:, c0:c0 + 64])
-                              .to(dev)}, cs, chunk_lens=cl)
+                              .to(dev)}, cs, runtime=runtime, chunk_lens=cl)
         # rows finalize at their own length: finalize each row separately
         logits = []
         for b in range(2):
             row = type(cs)(cache=[c._replace(k=c.k[b:b + 1], v=c.v[b:b + 1],
                                              length=c.length[b:b + 1])
                                   for c in cs.cache],
-                           wave=[_row_cp(w, b) for w in cs.wave])
-            st = M.finalize_prefill_chunk(cfg, row, total_len=int(lens[b]))
-            for t in range(6):
-                lg, st = M.apply_decode(params, cfg, st, torch.from_numpy(
-                    steps[t, b:b + 1]).to(dev), plan=plan,
-                    attn_impl=attn_impl)
-                logits.append(lg.float().cpu())
+                           wave=[w and _row_cp(w, b) for w in cs.wave])
+            st = M.finalize_prefill_chunk(cfg, row, runtime=runtime,
+                                          total_len=int(lens[b]))
+            logits += decode(st, slice(b, b + 1))
         runs[dev] = torch.stack(logits)
     err = (runs[device] - runs["cpu"]).abs().max().item()
-    log(f"  reduced gemma2-2b ({attn_impl}), card vs cpu logits: max|d| "
-        f"{err:.3e} (tol 1e-3)")
+    log(f"  reduced gemma2-2b ({runtime}, {admission} admission"
+        f"{', ' + attn_impl if runtime == 'retro' else ''}), card vs cpu "
+        f"logits: max|d| {err:.3e} (tol 1e-3)")
     if not torch.isfinite(runs[device]).all() or err > 1e-3:
         raise AssertionError(f"reduced model disagrees across devices: {err}")
     return err
@@ -1097,12 +1142,302 @@ def reduced_offload_across_devices(attn_impl, seed=0, device="cuda"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the other dense configs' decode shapes
+# ---------------------------------------------------------------------------
+
+def config_decode_cases(ctx=8192, gen_headroom=1024):
+    """(name, kwargs of ``ref.random_decode_inputs``, kwargs of
+    ``ref.random_merge_inputs``, softcap) at the decode shapes of the other
+    dense configs at full width, a ``ctx``-token context, their RetroConfig:
+    minitron-8b (8 KV heads, G 4, hd 128, no softcap or window) and
+    gemma3-1b (one KV head, G 4, hd 256, window 512)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.zones import plan_zones
+    out = []
+    for arch in ("minitron_8b", "gemma3_1b"):
+        cfg = get_config(arch)
+        a, retro = cfg.attn, cfg.retro
+        plan = plan_zones(ctx, retro, gen_headroom)
+        heads = dict(H=a.n_kv_heads, G=a.n_heads // a.n_kv_heads,
+                     hd=a.head_dim)
+        paged = dict(heads, M=plan.m_max, cap=retro.cluster_cap,
+                     lbuf=plan.local_buf, r=plan.r, e=plan.e,
+                     q_pos=(ctx + 30, ctx - 2000),
+                     local_len=(100, plan.local_buf),
+                     window=a.sliding_window and float(a.sliding_window))
+        merge = dict(heads, T=plan.sink + plan.local_buf
+                     + plan.r * retro.cluster_cap, E=plan.e + plan.r)
+        out.append((f"{arch}_decode", paged, merge, a.softcap))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# blocking admission (phase 7)
+# ---------------------------------------------------------------------------
+
+def _sync(device):
+    import torch
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _layer0_kv(params, cfg, tokens):
+    """The first layer's post-RoPE K/V (B, S, Hkv, hd) of ``tokens``."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import embed_tokens
+    a = cfg.attn
+    lp = params["layers"][0]
+    h = L.rms_norm(embed_tokens(params, cfg, tokens), lp["ln1"],
+                   cfg.norm_eps)
+    _, k, v = L.attention_qkv(lp["attn"], h, a.n_heads, a.n_kv_heads,
+                              a.head_dim, torch.arange(tokens.shape[1],
+                                                       device=tokens.device),
+                              a.rope_theta)
+    return k, v
+
+
+def build_bit_check(params, cfg, n=9000, chunk=256, seed=3,
+                    device="cuda"):
+    """``prefill_build`` against the chunked builder (``chunk``-token
+    chunks) on the first layer's K/V of an ``n``-token prompt, on the card:
+    every field of the two states must be the same bits."""
+    import numpy as np
+    import torch
+    from repro_torch.core import wave_index as W
+    from repro_torch.core.zones import plan_zones
+    from repro_torch.models.transformer import torch_dtype
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (1, n)).astype(np.int64)).to(device)
+    with torch.inference_mode():
+        k, v = _layer0_kv(params, cfg, toks)
+        M_ = plan_zones(n, cfg.retro, 1024).m_max
+        dt = torch_dtype(cfg)
+        t0 = time.perf_counter()
+        built = W.prefill_build(k, v, cfg.retro, M_, dtype=dt)
+        _sync(device)
+        build_s = time.perf_counter() - t0
+        cp = W.init_chunked_prefill(1, cfg.n_kv_heads, cfg.head_dim, M_,
+                                    cfg.retro, chunk, dt, device=device)
+        for c0 in range(0, n, chunk):
+            c = min(chunk, n - c0)
+            pad = lambda a: torch.nn.functional.pad(
+                a[:, c0:c0 + c], (0, 0, 0, 0, 0, chunk - c))
+            cp = W.prefill_append_chunk(
+                cp, pad(k), pad(v), cfg.retro,
+                torch.full((1,), c, dtype=torch.int32, device=device))
+        chunked = W.prefill_finalize(cp, cfg.retro, n)
+        _sync(device)
+    diff = [f for f, a, b in zip(built._fields, built, chunked)
+            if not torch.equal(a, b)]
+    res = dict(prompt=n, clusters=int(built.n_clusters[0]),
+               fields_differing=diff, prefill_build_s=build_s)
+    log(f"  prefill_build vs the chunked builder, layer 0 of a {n}-token "
+        f"prompt on the card: {res['clusters']} clusters, fields that "
+        f"differ: {diff or 'none'} (build {build_s:.2f} s)")
+    if diff:
+        raise AssertionError(f"prefill_build differs from the chunked "
+                             f"build in {diff}")
+    return res
+
+
+def blocking_vs_chunked_logits(params, cfg, n=9000, chunk=256, seed=4,
+                               gen_headroom=1024, device="cuda"):
+    """First-token logits of one ``n``-token prompt through blocking
+    admission (``apply_prefill``: flash attention, online softmax) and
+    through chunked admission (exact chunk attention). Both compute the
+    attention in f32 and round its output to the model dtype, at other
+    places; in bf16 a one-ulp difference in the residual stream grows
+    through the 26 layers of a random-weight model, so the bf16 run must
+    give the same greedy token (the reference's own criterion,
+    tests/test_system.py:141) and its distance from the bf16 tolerance
+    3e-2 (1 + |chunked|) is reported. The algorithms are held at full
+    width in f32 (weights from the same seed): elementwise within
+    1e-3 (1 + |chunked|)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.zones import plan_zones
+    from repro_torch.models import model as M
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (1, n)).astype(np.int64)).to(device)
+    plan = plan_zones(n, cfg.retro, gen_headroom)
+
+    def both(params, cfg):
+        with torch.inference_mode():
+            blk, st = M.apply_prefill(
+                params, cfg, {"tokens": toks}, plan=plan,
+                gen_headroom=gen_headroom,
+                lengths=torch.tensor([n], device=device))
+            del st
+            cs = M.make_prefill_chunk_state(cfg, 1, n, chunk=chunk,
+                                            gen_headroom=gen_headroom,
+                                            device=device)
+            for c0 in range(0, n, chunk):
+                c = min(chunk, n - c0)
+                t = torch.zeros((1, chunk), dtype=toks.dtype, device=device)
+                t[:, :c] = toks[:, c0:c0 + c]
+                chk, cs = M.apply_prefill_chunk(
+                    params, cfg, {"tokens": t}, cs,
+                    chunk_lens=torch.tensor([c], device=device))
+            del cs
+        d = (blk - chk).abs()
+        return blk, chk, d.max().item()
+
+    blk, chk, d16 = both(params, cfg)
+    excess16 = ((blk - chk).abs() - 3e-2 * (1 + chk.abs())).max().item()
+    same = bool((blk.argmax(-1) == chk.argmax(-1)).all())
+    cfg32 = cfg.replace(dtype="float32")
+    params32 = M.init_params(cfg32, torch.Generator(device=device)
+                             .manual_seed(seed), device)
+    blk32, chk32, d32 = both(params32, cfg32)
+    del params32
+    excess32 = ((blk32 - chk32).abs()
+                - 1e-3 * (1 + chk32.abs())).max().item()
+    res = dict(prompt=n, bf16_max_abs_diff=d16, bf16_excess_over_3e_2=excess16,
+               bf16_same_argmax=same, f32_max_abs_diff=d32,
+               f32_excess_over_1e_3=excess32,
+               f32_same_argmax=bool((blk32.argmax(-1)
+                                     == chk32.argmax(-1)).all()))
+    log(f"  blocking vs chunked first-token logits ({n} tokens): bf16 max|d| "
+        f"{d16:.3e} (excess over 3e-2 (1 + |chunked|): {excess16:.3e}), "
+        f"same argmax {same}; f32 max|d| {d32:.3e} (excess over "
+        f"1e-3 (1 + |chunked|): {excess32:.3e})")
+    if not (torch.isfinite(blk).all() and same and excess32 <= 0
+            and res["f32_same_argmax"]):
+        raise AssertionError(f"blocking and chunked logits differ: {res}")
+    return res
+
+
+def sparse_prefill_request(params, cfg, n=8192, blocks=16, new_tokens=8,
+                           seed=5, device="cuda"):
+    """One ``n``-token request served with ``sparse_prefill_blocks=blocks``
+    (set here with ``cfg.replace``; the published config is dense), which
+    admits through the block-sparse blocking prefill, decoding through the
+    paged kernel; then its first-token logits against the dense prefill's,
+    which must correlate above 0.9 (tests/test_sparse_prefill.py:75)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Request, ServeEngine
+    scfg = cfg.replace(sparse_prefill_blocks=blocks)
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab, n) \
+        .astype(np.int32)
+    engine = ServeEngine(scfg, params, device=device, attn_impl="fused")
+    _sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    req = Request(prompt, new_tokens)
+    t0 = time.perf_counter()
+    m = engine.serve([req], batch_size=1)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30 \
+        if device == "cuda" else 0.0
+    counts = {k: fn.launches for k, fn in launch_counters().items()}
+    want = {k: 0 for k in counts}
+    want["paged_wave_attention"] = cfg.n_layers * m.steps
+    if counts != want or len(req.out_tokens) != new_tokens:
+        raise AssertionError(f"sparse-prefill request: launches {counts} "
+                             f"(want {want}), {len(req.out_tokens)} tokens")
+    toks = torch.from_numpy(prompt[None].astype(np.int64)).to(device)
+    with torch.inference_mode():
+        sparse, st = M.apply_prefill(params, scfg, {"tokens": toks})
+        del st
+        dense, st = M.apply_prefill(params, cfg, {"tokens": toks})
+        del st
+    corr = float(np.corrcoef(sparse.float().cpu().numpy().ravel(),
+                             dense.float().cpu().numpy().ravel())[0, 1])
+    res = dict(prompt=n, blocks=blocks, steps=m.steps,
+               launches=counts["paged_wave_attention"], ttft_s=req.ttft_s,
+               wall_s=wall, peak_mem_gib=peak, corr_vs_dense=corr)
+    log(f"  block-sparse prefill ({blocks} blocks) request of {n} tokens: "
+        f"TTFT {req.ttft_s:.3f} s, {m.steps} decode steps, paged launches "
+        f"{res['launches']}, peak {peak:.2f} GiB; first-token logits "
+        f"correlate {corr:.4f} with the dense prefill's (need > 0.9)")
+    if not corr > 0.9:
+        raise AssertionError(f"sparse prefill logits: correlation {corr}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the full runtime (phase 8)
+# ---------------------------------------------------------------------------
+
+def full_attention_check(engine, max_ctx, device="cuda"):
+    """One decode step from the state the full-runtime serve left, with
+    every layer's ``full_attention_decode`` held, on its own inputs, against
+    an f32 softmax over the cache prefix of each row (no bf16 rounding of
+    p), within 2e-3 (1 + |ref|) elementwise."""
+    import math
+    import torch
+    from repro_torch.core import attention
+    from repro_torch.core.zones import plan_zones
+    from repro_torch.models import model as M
+    cfg = engine.cfg
+    kinds = cfg.layer_kinds()
+    real = attention.full_attention_decode
+    worst = {}
+    nbytes = []
+
+    def check(q, cache, *, window=None, softcap=None, span=None):
+        out = real(q, cache, window=window, softcap=softcap, span=span)
+        # the least bytes: the bf16 K/V prefix read once, q, the lengths
+        # and the output
+        nbytes.append(2 * _nbytes(cache.k[:, :, :span]) + _nbytes(
+            q, cache.length, out))
+        B, Hq, hd = q.shape
+        Hkv = cache.k.shape[1]
+        qg = q.reshape(B, Hkv, Hq // Hkv, hd).float()
+        for b in range(B):
+            n = int(cache.length[b])
+            k, v = cache.k[b, :, :n].float(), cache.v[b, :, :n].float()
+            s = torch.einsum("hgd,htd->hgt", qg[b], k) / math.sqrt(hd)
+            if softcap:
+                s = softcap * torch.tanh(s / softcap)
+            pos = torch.arange(n, device=q.device)
+            s = torch.where(pos > n - 1 - window, s, -math.inf) \
+                if window is not None else s
+            ref = torch.einsum("hgt,htd->hgd", torch.softmax(s, -1), v)
+            ref = ref.reshape(Hq, hd)
+            ex = ((out[b].float() - ref).abs()
+                  - 2e-3 * (1 + ref.abs())).max().item()
+            kind = kinds[len(seen) % cfg.n_layers]
+            worst[kind] = max(worst.get(kind, -1.0), ex)
+        seen.append(1)
+        return out
+
+    seen = []
+    plan = plan_zones(max_ctx, cfg.retro, engine.gen_headroom)
+    B = engine.last_state.kv[0].length.shape[0]
+    tok = torch.zeros((B,), dtype=torch.int32, device=device)
+    attention.full_attention_decode = check
+    try:
+        with torch.inference_mode():
+            lg, _ = M.apply_decode(engine.params, cfg, engine.last_state,
+                                   tok, runtime="full", plan=plan)
+    finally:
+        attention.full_attention_decode = real
+    res = dict(layers=len(seen), worst_excess_by_kind=worst,
+               bound_ms_per_step=bound(sum(nbytes), 0)[0])
+    log(f"  full_attention_decode vs an f32 softmax over the cache prefix, "
+        f"{len(seen)} layers of one decode step: worst excess over "
+        f"2e-3 (1 + |ref|) by layer kind {worst}; bytes bound of the "
+        f"step's attention {res['bound_ms_per_step']:.3f} ms")
+    if len(seen) != cfg.n_layers or not torch.isfinite(lg).all() or \
+            set(worst) != set(kinds) or max(worst.values()) > 0:
+        raise AssertionError(f"full attention check: {res}")
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--json", type=Path, default=None,
                     help="also write every result (cases, serve runs, decode "
                          "breakdown) to this file")
     opts = ap.parse_args(argv)
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
@@ -1153,6 +1488,15 @@ def main(argv=None):
             name, args, softcap, op="wave_attention_merge",
             time_it=name == "merge_full_width_bf16"))
         del args
+    log("phase 2c: both attention kernels vs twins at the decode shapes of "
+        "minitron-8b and gemma3-1b (8192-token context)")
+    for name, paged_kw, merge_kw, softcap in config_decode_cases():
+        args = random_decode_inputs(device="cuda", **paged_kw)
+        results["paged_wave_attention"].append(compare(name, args, softcap))
+        args = random_merge_inputs(device="cuda", **merge_kw)
+        results["wave_attention_merge"].append(compare(
+            "merge_" + name, args, softcap, op="wave_attention_merge"))
+        del args
     results["block_gather"].append(gather_case())
     kmeans = kmeans_case()
     results["kmeans_step"].append(kmeans)
@@ -1183,6 +1527,10 @@ def main(argv=None):
     log("phase 4: reduced model on the card vs the CPU")
     red_err = {impl: reduced_across_devices(impl)
                for impl in ("fused", "pallas")}
+    for runtime, admission in (("retro", "blocking"), ("full", "chunked"),
+                               ("full", "blocking")):
+        red_err[f"{runtime}_{admission}"] = reduced_across_devices(
+            "fused", runtime=runtime, admission=admission)
 
     # ---- phase 5: serve full-width gemma2-2b through "pallas" --------------
     log("phase 5: serve gemma2-2b at full width through attn_impl='pallas'")
@@ -1235,6 +1583,70 @@ def main(argv=None):
     red_offload = {impl: reduced_offload_across_devices(impl)
                    for impl in ("fused", "pallas")}
 
+    # ---- phase 7: blocking admission, retro, fused --------------------------
+    log("phase 7: serve gemma2-2b at full width with blocking admission "
+        "(prefill_build), attn_impl='fused'")
+    serve7, taken7, engine7 = serve_main_path(
+        CONFIG, prompt_lens5, (64, 32), attn_impl="fused",
+        admission="blocking", want_flush=False)
+    del taken7
+    log("  decode-step breakdown (after the run, both slots decoding)")
+    breakdown7 = decode_breakdown(engine7, max(prompt_lens5))
+    params7 = engine7.params
+    del engine7
+    torch.cuda.empty_cache()
+    build_check = build_bit_check(params7, CONFIG)
+    blk_vs_chk = blocking_vs_chunked_logits(params7, CONFIG)
+    sparse = sparse_prefill_request(params7, CONFIG)
+    del params7
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: runtime="full" --------------------------------------------
+    log("phase 8: serve gemma2-2b at full width through runtime='full' "
+        "(dense cache, exact attention), chunked and blocking admission")
+    serve8, breakdown8, full_check = {}, {}, {}
+    for admission in ("chunked", "blocking"):
+        serve8[admission], _, engine8 = serve_main_path(
+            CONFIG, prompt_lens5, (64, 32), runtime="full",
+            admission=admission, want_flush=False)
+        if admission == "chunked":
+            full_check = full_attention_check(engine8, max(prompt_lens5))
+            log("  decode-step breakdown (after the run, both slots "
+                "decoding)")
+            breakdown8 = decode_breakdown(engine8, max(prompt_lens5))
+        del engine8
+        torch.cuda.empty_cache()
+    for name, r in (("retro fused, phase 3", serve),
+                    ("retro pallas, phase 5", serve5),
+                    ("retro fused blocking, phase 7", serve7),
+                    ("full chunked, phase 8", serve8["chunked"]),
+                    ("full blocking, phase 8", serve8["blocking"])):
+        log(f"  {name}: decode {r['decode_tps']:.2f} tok/s, ITL p50/p99 "
+            f"{r['itl_p50_ms']:.2f}/{r['itl_p99_ms']:.2f} ms, TTFT s "
+            f"{['%.2f' % t for t in r['ttft_s']]}, peak "
+            f"{r['peak_mem_gib']:.2f} GiB")
+
+    # ---- phase 9: minitron-8b -----------------------------------------------
+    log("phase 9: serve minitron-8b at full published width through "
+        "attn_impl='fused' (hd 128, G 4)")
+    from repro_torch.configs.minitron_8b import CONFIG as MINITRON
+    prompt_lens9 = (8192, 6000)
+    serve9, taken9, engine9 = serve_main_path(
+        MINITRON, prompt_lens9, (32, 24), attn_impl="fused",
+        want_flush=False)
+    layer, args, softcap = taken9["g"]
+    minitron_launch = compare(f"minitron_captured_global_layer_{layer}",
+                              args, softcap, time_it=True)
+    minitron_launch["bound_ms"], minitron_launch["bound_by"] = \
+        kernel_bound(args)
+    log(f"    bound {minitron_launch['bound_ms']:.4f} ms "
+        f"({minitron_launch['bound_by']})")
+    results["paged_wave_attention"].append(minitron_launch)
+    log("  decode-step breakdown (after the run, both slots decoding)")
+    breakdown9 = decode_breakdown(engine9, max(prompt_lens9))
+    del taken9, args, engine9
+    torch.cuda.empty_cache()
+
     # the kernel line: launches on the path that runs the kernel (the serve
     # run of its impl; for the two kernels no serving path calls, one call
     # of their op entry point); times and bound at that path's captured
@@ -1248,7 +1660,11 @@ def main(argv=None):
                     block_gather=gather["launches"],
                     kmeans_step=kmeans["launches"])
     by_path = dict(paged_wave_attention=dict(
-        fused=serve["launches"], offload_fused=serve6["launches"]),
+        fused=serve["launches"], offload_fused=serve6["launches"],
+        blocking_fused=serve7["launches"],
+        sparse_prefill_fused=sparse["launches"],
+        minitron_fused=serve9["launches"],
+        full=sum(r["launches"] for r in serve8.values())),
         wave_attention_merge=dict(pallas=serve5["launches"]))
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -1264,15 +1680,24 @@ def main(argv=None):
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t.get("library_ms"),
             launches_by_path=by_path.get(name, {})))
+    script_s = time.perf_counter() - t_script
+    log(f"script {script_s:.1f} s")
     if opts.json is not None:
         opts.json.parent.mkdir(parents=True, exist_ok=True)
         opts.json.write_text(json.dumps(dict(
-            card=card, build_s=build_s, cases=results, serve=serve,
+            card=card, build_s=build_s, script_s=script_s, cases=results, serve=serve,
             decode_breakdown=breakdown, reduced_card_vs_cpu_err=red_err,
             serve_pallas=serve5, decode_breakdown_pallas=breakdown5,
             impls=impls, serve_offload=serve6,
             offload_vs_direct=vs_direct, decode_breakdown_offload=breakdown6,
-            reduced_offload_card_vs_cpu=red_offload, kernels=kernels),
+            reduced_offload_card_vs_cpu=red_offload, serve_blocking=serve7,
+            decode_breakdown_blocking=breakdown7,
+            decode_breakdown_minitron=breakdown9,
+            build_bit_check=build_check, blocking_vs_chunked=blk_vs_chk,
+            sparse_prefill=sparse, serve_full=serve8,
+            decode_breakdown_full=breakdown8, full_attention_check=full_check,
+            serve_minitron=serve9, minitron_launch=minitron_launch,
+            kernels=kernels),
             indent=1))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,19 @@
 """Architecture registry. Port of ``repro/configs/registry.py`` without JAX:
-``input_specs`` and ``materialize_batch`` are not ported yet, and only the
-gemma2-2b config module exists in the port."""
+the port has the four ``family="dense"`` configs (gemma2-2b, gemma2-9b,
+gemma3-1b, minitron-8b); the moe/ssm/hybrid/vlm/audio configs and
+``input_specs``/``materialize_batch`` are not ported yet."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import ModelConfig, RetroConfig
 
-ALIASES = {"gemma2-2b": "gemma2_2b"}
+ALIASES = {
+    "gemma3-1b": "gemma3_1b",
+    "gemma2-9b": "gemma2_9b",
+    "minitron-8b": "minitron_8b",
+    "gemma2-2b": "gemma2_2b",
+}
 
 
 def get_config(arch: str) -> ModelConfig:

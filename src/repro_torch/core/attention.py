@@ -17,7 +17,11 @@ block cache addressed by cache-slot ids instead of the cluster stores),
 ``valid`` (degraded decode: clusters whose fetch failed are masked out) and
 ``cover`` (their mass re-enters through the estimation zone,
 ``_retrieval_cover``). The sharding hooks ``return_parts`` and
-``include_steady`` and ``full_attention_decode`` are not ported yet.
+``include_steady`` are not ported yet.
+
+The dense-cache runtime (``runtime="full"``, the paper's full-attention
+comparator) is here too: ``DenseCache``, ``dense_cache_append`` and
+``full_attention_decode``, plain code in the reference as in the port.
 """
 from __future__ import annotations
 
@@ -386,7 +390,69 @@ def wave_attention_decode(q, state: WaveState, retro: RetroConfig,
 
 
 class DenseCache(NamedTuple):
-    """Exact K/V of a prompt: chunked admission's admission cache."""
+    """Exact K/V per row: the chunked admission cache, and the serve state
+    of the full runtime."""
     k: torch.Tensor            # (B, H, S_max, hd)
     v: torch.Tensor            # (B, H, S_max, hd)
     length: torch.Tensor       # (B,) int32 — valid prefix per row
+
+
+def init_dense_cache(B, H, S_max, hd, dtype=torch.bfloat16,
+                     device="cuda") -> DenseCache:
+    z = lambda: torch.zeros((B, H, S_max, hd), dtype=dtype, device=device)
+    return DenseCache(z(), z(), torch.zeros((B,), dtype=torch.int32,
+                                            device=device))
+
+
+def dense_cache_append(cache: DenseCache, k_new, v_new,
+                       active: Optional[torch.Tensor] = None) -> DenseCache:
+    """Append (B, H, hd) K/V at each row's own cursor, in place.
+
+    ``active``: optional (B,) bool; inactive rows (free slots) are left
+    untouched. A row at capacity drops the append and keeps its cursor, so
+    ``length`` never claims a token the cache does not hold. The reference
+    routes both kinds of row to an out-of-range index that XLA drops; an
+    out-of-range index faults in torch, so here every row writes its
+    (clamped) cursor slot, and the rows that must not append write back
+    what the slot holds."""
+    B, _, S_max, _ = cache.k.shape
+    ar = torch.arange(B, device=k_new.device)
+    write = cache.length < S_max
+    if active is not None:
+        write = write & active
+    idx = torch.clamp(cache.length.long(), max=S_max - 1)
+    for buf, new in ((cache.k, k_new), (cache.v, v_new)):
+        buf[ar, :, idx] = torch.where(write[:, None, None],
+                                      new.to(buf.dtype), buf[ar, :, idx])
+    return DenseCache(cache.k, cache.v, cache.length + write.to(torch.int32))
+
+
+def full_attention_decode(q, cache: DenseCache, *, window=None, softcap=None,
+                          span: Optional[int] = None):
+    """q: (B, Hq, hd) against the dense cache: an exact softmax over each
+    row's valid positions (``pos < length``, and the sliding window).
+
+    The reference's cast points: q is cast to the cache dtype, scores and
+    P @ V accumulate in f32, and p is rounded to the cache dtype before the
+    P @ V product; the output is cast to q's dtype. A bf16 matmul in torch
+    returns bf16, so the storage-dtype operands are upcast to f32 (exact).
+    Only the first ``span`` slots are read and upcast (default: the whole
+    cache); callers pass the longest row's length, past which every row's
+    positions are masked anyway."""
+    B, Hq, hd = q.shape
+    Hkv = cache.k.shape[1]
+    G = Hq // Hkv
+    T = cache.k.shape[2] if span is None else min(span, cache.k.shape[2])
+    scale = 1.0 / math.sqrt(hd)
+    dt = cache.k.dtype
+    qg = q.reshape(B, Hkv, G, hd).to(dt).float()
+    kf, vf = cache.k[:, :, :T].float(), cache.v[:, :, :T].float()
+    s = soft_cap(torch.einsum("bhgd,bhtd->bhgt", qg, kf) * scale, softcap)
+    pos = torch.arange(T, device=q.device)
+    ok = pos[None, :] < cache.length[:, None]                    # (B, T)
+    if window is not None:
+        ok = ok & (pos[None, :] > (cache.length - 1)[:, None] - window)
+    s = torch.where(ok[:, None, None, :], s, NEG)
+    p = torch.softmax(s, dim=-1).to(dt).float()
+    out = torch.einsum("bhgt,bhtd->bhgd", p, vf)
+    return out.reshape(B, Hq, hd).to(q.dtype)

@@ -3,8 +3,9 @@
 Port of ``repro/core/clustering.py``. The JAX module works on one
 (batch, head) segment and is vmapped by its callers; here every function is
 batched over a leading segment axis S (callers flatten (B, H) into it). The
-reference computes this in jnp outside any Pallas kernel, so it stays plain
-PyTorch here.
+reference computes this in jnp outside any Pallas kernel (its k-means kernel
+has no centering and no ragged mask, and no path calls it from here), so it
+stays plain PyTorch here.
 """
 from __future__ import annotations
 
@@ -140,3 +141,42 @@ def cluster_segment(keys, values, positions, avg_cluster: int, cap: int,
     assign = spherical_kmeans(keys, k, iters, centering, valid=valid)
     return build_cluster_stores(keys, values, positions, assign, k, cap,
                                 valid=valid)
+
+
+def segmented_cluster(keys, values, positions, segment: int, avg_cluster: int,
+                      cap: int, iters: int, centering: bool,
+                      serial: bool = False,
+                      valid: Optional[torch.Tensor] = None) -> ClusterResult:
+    """Cluster S sequences of n tokens segment by segment (n must divide by
+    ``segment``): keys/values (S, n, hd), positions (S, n), optional valid
+    (S, n) bool. Returns leading (S, n // avg_cluster) clusters, ordered
+    segment-major.
+
+    ``serial=False`` clusters every segment in one batched call (the
+    reference's ``vmap``); ``serial=True`` one segment at a time (its
+    ``lax.map``), so the k-means working set (similarities, one-hots) is held
+    for one segment only. Both give the same result: each segment is
+    clustered on its own."""
+    S, n, hd = keys.shape
+    if n % segment:
+        raise ValueError(f"sequence length {n} does not divide by the "
+                         f"segment {segment}")
+    n_seg = n // segment
+
+    def one(k, v, p, w):
+        return cluster_segment(k.contiguous(), v.contiguous(), p, avg_cluster,
+                               cap, iters, centering, valid=w)
+
+    if serial:
+        parts = [one(keys[:, i * segment:(i + 1) * segment],
+                     values[:, i * segment:(i + 1) * segment],
+                     positions[:, i * segment:(i + 1) * segment],
+                     None if valid is None
+                     else valid[:, i * segment:(i + 1) * segment])
+                 for i in range(n_seg)]
+        return ClusterResult(*(torch.cat(f, dim=1) for f in zip(*parts)))
+    res = one(keys.reshape(S * n_seg, segment, hd),
+              values.reshape(S * n_seg, segment, hd),
+              positions.reshape(S * n_seg, segment),
+              None if valid is None else valid.reshape(S * n_seg, segment))
+    return ClusterResult(*(a.reshape((S, -1) + a.shape[2:]) for a in res))

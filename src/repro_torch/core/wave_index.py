@@ -1,7 +1,6 @@
 """Wave index: attention-aware cluster index over the KV cache (paper Sec. 4.2).
 
-Port of ``repro/core/wave_index.py`` (``prefill_build`` and ``maybe_flush``
-are not ported yet). Per attention layer the state
+Port of ``repro/core/wave_index.py``. Per attention layer the state
 holds, for every (batch, kv_head): fixed-capacity cluster stores, the meta
 index (centroid, value sum, size), the sink zone and a local-window buffer
 that doubles as the staging area of decode-time clustering.
@@ -20,7 +19,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import RetroConfig
-from repro_torch.core.clustering import ClusterResult, cluster_segment
+from repro_torch.core.clustering import (ClusterResult, cluster_segment,
+                                         segmented_cluster)
 
 
 class WaveState(NamedTuple):
@@ -94,14 +94,30 @@ def init_wave_state(B: int, H: int, hd: int, M: int, retro: RetroConfig,
         local_len=z((B,), i32), length=z((B,), i32))
 
 
-def _cluster_rows(k, v, pos, retro: RetroConfig) -> ClusterResult:
-    """Cluster one segment per (row, head). k/v: (B, H, n, hd); pos: (B, n).
-    Returns a ClusterResult with leading (B, H, k_new)."""
+def _cluster_rows(k, v, pos, retro: RetroConfig, valid=None,
+                  segment: Optional[int] = None) -> ClusterResult:
+    """Cluster one segment per (row, head), or, with ``segment``, a span of
+    whole segments through ``segmented_cluster``. k/v: (B, H, n, hd); pos
+    and the optional ``valid`` mask: (B, n). Returns a ClusterResult with
+    leading (B, H, k_new). The chunked and the monolithic builds both come
+    here, with K/V made contiguous, so they cluster the same bits the same
+    way."""
     B, H, n, hd = k.shape
-    res = cluster_segment(k.reshape(B * H, n, hd), v.reshape(B * H, n, hd),
-                          pos[:, None, :].expand(B, H, n).reshape(B * H, n),
-                          retro.avg_cluster, retro.cluster_cap,
-                          retro.kmeans_iters, retro.centering)
+
+    def rows(a):
+        return a[:, None].expand((B, H) + a.shape[1:]).reshape(
+            (B * H,) + a.shape[1:])
+
+    args = (k.reshape(B * H, n, hd).contiguous(),
+            v.reshape(B * H, n, hd).contiguous(), rows(pos))
+    vm = None if valid is None else rows(valid)
+    common = (retro.avg_cluster, retro.cluster_cap, retro.kmeans_iters,
+              retro.centering)
+    if segment is None:
+        res = cluster_segment(*args, *common, valid=vm)
+    else:
+        res = segmented_cluster(*args, segment, *common,
+                                serial=retro.serial_prefill_segments, valid=vm)
     return ClusterResult(*(a.reshape((B, H) + a.shape[1:]) for a in res))
 
 
@@ -130,6 +146,68 @@ def _write_clusters(state: WaveState, res: ClusterResult, offset,
         dst[bidx, idx] = new
     step = k_new if rows is None else rows.to(torch.int32) * k_new
     return state._replace(n_clusters=state.n_clusters + step)
+
+
+def prefill_build(k, v, retro: RetroConfig, M: int, dtype=None,
+                  lengths: Optional[torch.Tensor] = None) -> WaveState:
+    """Build the wave index from a whole prompt's K/V (blocking admission).
+
+    k, v: (B, S, H, hd) post-RoPE. The sink zone takes the first ``sink``
+    tokens, the local window each row's last ``local`` real tokens, and the
+    region between them is clustered: ``prefill_segment``-sized segments
+    through ``segmented_cluster``, then the partial tail segment.
+
+    ``lengths``: optional (B,) true lengths of right-padded rows; only
+    tokens in [sink, lengths[b] - local) enter clusters, so padding never
+    reaches a store. Needs lengths[b] >= sink + local. None: every row uses
+    all S tokens. For the same K/V the store is the chunked build's
+    (``prefill_append_chunk`` + ``prefill_finalize``) bit for bit.
+    """
+    B, S, H, hd = k.shape
+    dtype = dtype or k.dtype
+    sink = retro.sink
+    if S <= sink:
+        raise ValueError(
+            f"prompt length {S} must exceed the sink width {sink}")
+    dev = k.device
+    local = min(retro.local, max(S - sink, 0))
+    n_full, tail, _ = prefill_layout(S, retro)
+    state = init_wave_state(B, H, hd, M, retro, dtype, dev)
+    kbh = k.transpose(1, 2).contiguous()                     # (B, H, S, hd)
+    vbh = v.transpose(1, 2).contiguous()
+    if lengths is None:
+        lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+        valid = None
+    else:
+        lens = lengths.to(device=dev, dtype=torch.int32)
+        # cluster-valid tokens: [sink, lens - local) per row
+        valid = torch.arange(S, device=dev)[None, :] < (lens - local)[:, None]
+
+    # per-row local window: the last ``local`` real tokens; the reference's
+    # dynamic_slice clamps the start to S - local
+    win0 = torch.clamp(lens - local, min=0, max=S - local).long()
+    idx = (win0[:, None] + torch.arange(local, device=dev))[:, None, :, None]
+    idx = idx.expand(B, H, local, hd)
+    state.sink_k.copy_(kbh[:, :, :sink])
+    state.sink_v.copy_(vbh[:, :, :sink])
+    state.local_k[:, :, :local] = kbh.gather(2, idx)
+    state.local_v[:, :, :local] = vbh.gather(2, idx)
+    state = state._replace(
+        local_len=torch.full((B,), local, dtype=torch.int32, device=dev),
+        length=lens.clone())
+
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None, :].expand(B, S)
+    seg = retro.prefill_segment
+    for t0, n, segment in ((sink, n_full * seg, seg),
+                           (sink + n_full * seg, tail, None)):
+        if n == 0:
+            continue
+        res = _cluster_rows(kbh[:, :, t0:t0 + n], vbh[:, :, t0:t0 + n],
+                            pos[:, t0:t0 + n], retro,
+                            None if valid is None else valid[:, t0:t0 + n],
+                            segment=segment)
+        state = _write_clusters(state, res, state.n_clusters)
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -343,3 +421,12 @@ def flush_segment_offload(state: WaveState, retro: RetroConfig,
     return state._replace(
         local_len=torch.where(rows, state.local_len - useg,
                               state.local_len)), res
+
+
+def maybe_flush(state: WaveState, retro: RetroConfig) -> WaveState:
+    """Flush (per-row masked) iff any row's staging buffer is full. The
+    reference decides inside jit with ``lax.cond``; here the check reads one
+    flag back."""
+    if bool((state.local_len >= local_buffer_size(retro)).any()):
+        return flush_segment(state, retro)
+    return state

@@ -61,6 +61,14 @@ def wave_states_from_numpy(fields: Mapping[str, np.ndarray],
 
 def serve_state_from_numpy(fields: Mapping[str, np.ndarray],
                            device) -> ServeState:
+    """Stacked (L, ...) serve-state leaves by field name -> ServeState: a
+    WaveState per layer (retro runtime), or a DenseCache per layer when the
+    fields are ``k``, ``v``, ``length`` (full runtime)."""
+    if set(fields) == set(DenseCache._fields):
+        n = len(fields["length"])
+        return ServeState(kv=[
+            DenseCache(*(tensor_from_numpy(fields[f][i], device)
+                         for f in DenseCache._fields)) for i in range(n)])
     return ServeState(kv=wave_states_from_numpy(fields, device))
 
 

@@ -556,7 +556,9 @@ __global__ void __launch_bounds__(CT) combine_kernel(const float* ws, int BH,
 }
 
 // Set a kernel's dynamic shared memory limit to at least `bytes` (once per
-// kernel and size).
+// kernel and size). `allowed` is the limit last set on that kernel, so it
+// must be kept per kernel: a smaller request must never lower a limit that
+// another caller of the same kernel relies on.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes, size_t& allowed) {
   if (bytes <= allowed) return cudaSuccess;
@@ -566,10 +568,17 @@ cudaError_t allow_smem(K kernel, size_t bytes, size_t& allowed) {
   return e;
 }
 
+// The limit set on combine_kernel<Src>, which every (KV, G) of a Src shares.
+template <class Src>
+size_t& combine_allowed() {
+  static size_t allowed = 0;
+  return allowed;
+}
+
 // The two launches of one decode step's attention, on `stream`.
 template <class Src, typename KV, int G>
 cudaError_t run(const Src& src, const Common& c, cudaStream_t stream) {
-  static size_t split_allowed = 0, combine_allowed = 0;
+  static size_t split_allowed = 0;     // split_kernel<Src, KV, G>'s limit
   const int S = c.sp.splits();
   if (S > 0) {
     const int nst = c.sp.tps < NSTAGE ? c.sp.tps : NSTAGE;
@@ -583,7 +592,8 @@ cudaError_t run(const Src& src, const Common& c, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
   }
   const size_t cdyn = ((size_t)pad4(S) + 4 * CT) * sizeof(float);
-  cudaError_t e = allow_smem(combine_kernel<Src>, cdyn, combine_allowed);
+  cudaError_t e = allow_smem(combine_kernel<Src>, cdyn,
+                             combine_allowed<Src>());
   if (e != cudaSuccess) return e;
   const dim3 cgrid(c.BH * G, cdiv(c.hd, CC));
   combine_kernel<Src><<<cgrid, CT, cdyn, stream>>>(c.ws, c.BH, S, G, c.hd,

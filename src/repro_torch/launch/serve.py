@@ -1,9 +1,11 @@
-"""Serving launcher: continuous-batching demo with the wave-index runtime on
-the port. Port of ``repro/launch/serve.py`` (chunked admission only).
+"""Serving launcher: continuous-batching demo on the port, with the
+wave-index runtime or the full-attention (dense cache) comparator, under
+chunked or blocking admission. Port of ``repro/launch/serve.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_2b \
         --device cuda --requests 4 --batch 2 --prompt-lens 8192,6000 \
-        --new-tokens 32 --stagger 8 [--offload --cache-frac 0.2]
+        --new-tokens 32 --stagger 8 [--runtime full] \
+        [--admission blocking --prefill-bucket 64] [--offload --cache-frac 0.2]
 """
 from __future__ import annotations
 
@@ -20,9 +22,12 @@ from repro_torch.serving.engine import Request, ServeEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", default="gemma2_2b",
+                    help="gemma2_2b, gemma2_9b, gemma3_1b or minitron_8b "
+                         "(or their dashed names)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--runtime", default="retro", choices=["retro", "full"])
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-lens", default="640",
@@ -30,6 +35,8 @@ def main(argv=None):
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--stagger", type=int, default=0,
                     help="request i generates new-tokens + i*stagger tokens")
+    ap.add_argument("--admission", default="chunked",
+                    choices=["chunked", "blocking"])
     ap.add_argument("--attn-impl", default=None, choices=["jnp", "fused"],
                     help="retro decode-attention implementation: 'jnp' "
                          "(reference execution-buffer path) or 'fused' "
@@ -39,6 +46,8 @@ def main(argv=None):
                          "Default: the config's retro.attn_impl")
     ap.add_argument("--prefill-chunk", type=int, default=256,
                     help="chunked-admission tokens per scheduler iteration")
+    ap.add_argument("--prefill-bucket", type=int, default=1,
+                    help="blocking-mode prompt-length bucket")
     ap.add_argument("--offload", action="store_true",
                     help="host-offload wave buffer (paper Sec. 4.3): the "
                          "cluster payload stores live in host memory; decode "
@@ -74,8 +83,10 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = M.init_params(cfg, gen, dev)
     lens = [int(x) for x in args.prompt_lens.split(",")]
-    engine = ServeEngine(cfg, params, gen_headroom=512,
+    engine = ServeEngine(cfg, params, runtime=args.runtime, gen_headroom=512,
+                         admission=args.admission,
                          prefill_chunk=args.prefill_chunk,
+                         prefill_bucket=args.prefill_bucket,
                          attn_impl=args.attn_impl, offload=args.offload,
                          cache_frac=args.cache_frac,
                          cache_policy=args.cache_policy,
@@ -89,9 +100,10 @@ def main(argv=None):
                     max_new_tokens=args.new_tokens + i * args.stagger)
             for i in range(args.requests)]
     m = engine.serve(reqs, batch_size=args.batch)
-    print(f"served {len(reqs)} requests on {args.batch} slots (retro"
-          f"{'+offload' if engine.offload else ''}, "
-          f"chunked admission, {engine.attn_impl} attention, {dev}): "
+    print(f"served {len(reqs)} requests on {args.batch} slots "
+          f"({engine.runtime}{'+offload' if engine.offload else ''}, "
+          f"{engine.admission} admission, {engine.attn_impl} attention, "
+          f"{dev}): "
           f"prefill {m.prefill_s:.2f}s, "
           f"decode {m.tokens_out} tokens @ {m.decode_tps:.1f} tok/s, "
           f"slot occupancy {m.slot_occupancy:.2f}, "

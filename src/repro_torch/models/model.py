@@ -1,17 +1,21 @@
 """Model API used by the serve engine. Port of ``repro/models/model.py``,
-dense family, retro runtime with chunked admission:
+dense family, both serve runtimes ("retro": the wave index; "full": a
+dense KV cache), blocking and chunked admission:
 
     params      = init_params(cfg, generator, device)
-    cs          = make_prefill_chunk_state(cfg, B, max_ctx, chunk=C, device=...)
+    logits, st  = apply_prefill(params, cfg, {"tokens": ...}, runtime=...,
+                                lengths=..., cache_len=...)
+    cs          = make_prefill_chunk_state(cfg, B, max_ctx, chunk=C,
+                                           runtime=..., device=...)
     logits, cs  = apply_prefill_chunk(params, cfg, {"tokens": ...}, cs, ...)
-    state       = finalize_prefill_chunk(cfg, cs, total_len=L)
-    logits, st  = apply_decode(params, cfg, state, token, plan=..., active=...,
-                               attn_impl=...)
-    state       = flush_state(cfg, state)
-    state       = make_serve_state(cfg, B, seq_len, device=...)
-    supports_offload(cfg), offload_decode_fns(cfg)   # host-offload decode
+    state       = finalize_prefill_chunk(cfg, cs, total_len=L, runtime=...)
+    logits, st  = apply_decode(params, cfg, state, token, runtime=...,
+                               plan=..., active=..., attn_impl=...)
+    state       = flush_state(cfg, state, runtime=...)
+    state       = make_serve_state(cfg, B, seq_len, runtime=..., device=...)
+    supports_offload(cfg, runtime), offload_decode_fns(cfg)  # host offload
 
-Other families raise ``NotImplementedError``.
+The moe, vlm and non-attention families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,41 +50,64 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return transformer.init_transformer(cfg, generator, dev)
 
 
+def apply_prefill(params, cfg: ModelConfig, batch, *, runtime: str = "retro",
+                  plan: Optional[ZonePlan] = None, gen_headroom: int = 4096,
+                  lengths=None, cache_len: Optional[int] = None):
+    """Blocking admission: the whole right-padded prompt ``batch['tokens']``
+    (B, T) in one pass. ``lengths``: optional (B,) true prompt lengths.
+    ``cache_len``: the full runtime's dense-cache capacity."""
+    _dense_only(cfg)
+    return transformer.prefill(params, cfg, batch["tokens"], runtime=runtime,
+                               plan=plan, gen_headroom=gen_headroom,
+                               lengths=lengths, cache_len=cache_len)
+
+
+def supports_chunked_prefill(cfg: ModelConfig, runtime: str = "retro") -> bool:
+    """Chunked admission exists for the attention families under both
+    runtimes (the port has the dense one)."""
+    return cfg.family in PORTED_FAMILIES
+
+
 def make_prefill_chunk_state(cfg: ModelConfig, B: int, max_ctx: int, *,
-                             chunk: int, gen_headroom: int = 4096,
-                             device=None):
+                             runtime: str = "retro", chunk: int,
+                             gen_headroom: int = 4096, device=None):
     _dense_only(cfg)
     return transformer.init_prefill_chunk_state(
-        cfg, B, max_ctx, chunk=chunk, gen_headroom=gen_headroom,
-        device=resolve_device(device))
+        cfg, B, max_ctx, runtime=runtime, chunk=chunk,
+        gen_headroom=gen_headroom, device=resolve_device(device))
 
 
 def apply_prefill_chunk(params, cfg: ModelConfig, batch, state, *,
-                        chunk_lens=None):
+                        runtime: str = "retro", chunk_lens=None):
     """Consume the next right-padded prompt chunk ``batch['tokens']`` (B, C)."""
     _dense_only(cfg)
     return transformer.prefill_chunk(params, cfg, batch["tokens"], state,
-                                     chunk_lens=chunk_lens)
+                                     runtime=runtime, chunk_lens=chunk_lens)
 
 
-def finalize_prefill_chunk(cfg: ModelConfig, state, *, total_len: int):
+def finalize_prefill_chunk(cfg: ModelConfig, state, *, runtime: str = "retro",
+                           total_len: int):
     _dense_only(cfg)
-    return transformer.finalize_prefill_chunk(cfg, state, total_len=total_len)
+    return transformer.finalize_prefill_chunk(cfg, state, runtime=runtime,
+                                              total_len=total_len)
 
 
 def apply_decode(params, cfg: ModelConfig, state, token, *,
-                 plan: Optional[ZonePlan] = None,
+                 runtime: str = "retro", plan: Optional[ZonePlan] = None,
                  seq_len: Optional[int] = None, gen_headroom: int = 4096,
-                 active=None, attn_impl: Optional[str] = None):
-    """``active``: optional (B,) bool slot mask. ``attn_impl``: "jnp"
-    (reference execution-buffer path), "fused" (paged kernel) or "pallas"
-    (gathered-buffer kernel); None defers to ``cfg.retro.attn_impl``."""
+                 inline_flush: bool = False, active=None,
+                 attn_impl: Optional[str] = None):
+    """``active``: optional (B,) bool slot mask. ``attn_impl`` (retro
+    runtime): "jnp" (reference execution-buffer path), "fused" (paged
+    kernel) or "pallas" (gathered-buffer kernel); None defers to
+    ``cfg.retro.attn_impl``."""
     _dense_only(cfg)
     if plan is None:
         if seq_len is None:
             raise ValueError("need plan or seq_len")
         plan = plan_zones(seq_len, cfg.retro, gen_headroom)
-    return transformer.decode_step(params, cfg, state, token, plan=plan,
+    return transformer.decode_step(params, cfg, state, token, runtime=runtime,
+                                   plan=plan, inline_flush=inline_flush,
                                    active=active, attn_impl=attn_impl)
 
 
@@ -101,17 +128,29 @@ def offload_decode_fns(cfg: ModelConfig):
             transformer.offload_flush)
 
 
-def flush_state(cfg: ModelConfig, state, rows=None):
+def flush_state(cfg: ModelConfig, state, *, runtime: str = "retro",
+                rows=None):
     """Decode-time segmented-clustering index update of every layer (rows
-    default to those whose staging buffer is full)."""
+    default to those whose staging buffer is full). A no-op for the dense
+    cache of the full runtime."""
     _dense_only(cfg)
+    if runtime != "retro":
+        return state
     return state._replace(kv=[flush_segment(st, cfg.retro, rows=rows)
                               for st in state.kv])
 
 
+def needs_flush(cfg: ModelConfig, appended_since_flush: int) -> bool:
+    """The staging buffer holds local + update_segment tokens; it must be
+    flushed every ``update_segment`` appended tokens."""
+    return appended_since_flush >= cfg.retro.update_segment
+
+
 def make_serve_state(cfg: ModelConfig, B: int, seq_len: int, *,
-                     gen_headroom: int = 4096, device=None):
+                     runtime: str = "retro", gen_headroom: int = 4096,
+                     zero_fill: bool = False, device=None):
     _dense_only(cfg)
-    return transformer.init_serve_state(cfg, B, seq_len,
+    return transformer.init_serve_state(cfg, B, seq_len, runtime=runtime,
                                         gen_headroom=gen_headroom,
+                                        zero_fill=zero_fill,
                                         device=resolve_device(device))

@@ -1,12 +1,17 @@
-"""Dense GQA transformer serving path (retro runtime).
+"""Dense GQA transformer serving path.
 
-Port of ``repro/models/transformer.py``, dense family only: init, chunked
-prefill (exact chunk attention against an admission cache while the wave
-index is built incrementally), its finalize, the retro decode step with any
-of the decode-attention impls (``attn_impl``: "jnp", "fused", "pallas"),
-and the two halves of the host-offload decode layer with its flush. The JAX
-layer scan becomes a Python loop over per-layer parameter dicts and
-per-layer states.
+Port of ``repro/models/transformer.py``, dense family only: init, the
+monolithic prefill of blocking admission (flash or block-sparse attention,
+then ``prefill_build``), chunked prefill (exact chunk attention against an
+admission cache while the wave index is built incrementally) and its
+finalize, the decode step with any of the decode-attention impls
+(``attn_impl``: "jnp", "fused", "pallas"), and the two halves of the
+host-offload decode layer with its flush. The JAX layer scan becomes a
+Python loop over per-layer parameter dicts and per-layer states.
+
+Serve-time attention runtime, as in the reference:
+  * "retro": the wave index (the paper's technique);
+  * "full": a dense KV cache and exact attention (the paper's baseline).
 """
 from __future__ import annotations
 
@@ -17,10 +22,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as wa
+from repro_torch.core.sparse_prefill import block_sparse_attention
 from repro_torch.core.wave_index import (WaveState, append_token,
                                          flush_segment_offload,
                                          init_chunked_prefill, init_wave_state,
-                                         prefill_append_chunk, prefill_finalize,
+                                         maybe_flush, prefill_append_chunk,
+                                         prefill_build, prefill_finalize,
                                          scatter_chunk_rows)
 from repro_torch.core.zones import ZonePlan, plan_zones
 from repro_torch.models import layers as L
@@ -97,8 +104,72 @@ def _ffn(lp, x, cfg: ModelConfig):
 
 
 class ServeState(NamedTuple):
-    """Per-layer wave states of the decode batch."""
-    kv: List[WaveState]
+    """Per-layer KV state of the decode batch: ``WaveState``s (retro
+    runtime) or ``DenseCache``s (full runtime)."""
+    kv: List[Any]
+
+
+def prefill(params, cfg: ModelConfig, tokens, *, runtime: str = "retro",
+            plan: Optional[ZonePlan] = None, gen_headroom: int = 4096,
+            lengths: Optional[torch.Tensor] = None,
+            cache_len: Optional[int] = None
+            ) -> Tuple[torch.Tensor, ServeState]:
+    """Process a whole prompt (blocking admission); returns (last-position
+    logits, serve state).
+
+    ``lengths``: optional (B,) true prompt lengths of right-padded rows:
+    causality keeps real queries blind to pad keys, the wave index keeps
+    pads out of its stores, and the logits are taken at each row's own last
+    real position. ``cache_len``: the full runtime's dense-cache slots
+    (default T + gen_headroom); the engine sizes every slot's prefill to the
+    decode batch's capacity so the state grafts into it.
+    ``cfg.sparse_prefill_blocks > 0`` (and T a multiple of 128) runs
+    block-sparse attention instead of the dense flash attention."""
+    a, retro, dt = cfg.attn, cfg.retro, torch_dtype(cfg)
+    x = embed_tokens(params, cfg, tokens)
+    B, T, _ = x.shape
+    dev = tokens.device
+    positions = torch.arange(T, device=dev)
+    if plan is None:
+        plan = plan_zones(T, retro, gen_headroom)
+    lens = None if lengths is None else lengths.to(device=dev,
+                                                   dtype=torch.int32)
+    total = cache_len if cache_len is not None else T + gen_headroom
+    if total < T:
+        raise ValueError(f"cache length {total} below the prompt length {T}")
+    use_sparse = cfg.sparse_prefill_blocks > 0 and T % 128 == 0
+    kv = []
+    for lp, window in zip(params["layers"], params["window"]):
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = L.attention_qkv(lp["attn"], h, a.n_heads, a.n_kv_heads,
+                                  a.head_dim, positions, a.rope_theta)
+        if use_sparse:
+            o = block_sparse_attention(q, k, v, block=128,
+                                       topk_blocks=cfg.sparse_prefill_blocks,
+                                       window=window, softcap=a.softcap)
+        else:
+            o = L.flash_attention_jnp(q, k, v, causal=True, window=window,
+                                      softcap=a.softcap)
+        x = x + o.reshape(B, T, -1) @ lp["attn"]["wo"]
+        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + _ffn(lp, h, cfg)
+        if runtime == "retro":
+            kv.append(prefill_build(k, v, retro, plan.m_max, dtype=dt,
+                                    lengths=lens))
+        else:
+            cache = wa.init_dense_cache(B, a.n_kv_heads, total, a.head_dim,
+                                        dt, dev)
+            cache.k[:, :, :T] = k.transpose(1, 2)
+            cache.v[:, :, :T] = v.transpose(1, 2)
+            kv.append(cache._replace(
+                length=torch.full((B,), T, dtype=torch.int32, device=dev)
+                if lens is None else lens.clone()))
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if lens is None:
+        last = x[:, -1]
+    else:
+        last = x[torch.arange(B, device=dev), (lens - 1).long()]
+    return unembed(params, cfg, last), ServeState(kv=kv)
 
 
 # ---------------------------------------------------------------------------
@@ -108,27 +179,31 @@ class ServeState(NamedTuple):
 
 class PrefillChunkState(NamedTuple):
     """Admission-time state, one entry per layer: the exact K/V of the
-    prompt so far (``cache``) and the streaming wave-index build (``wave``)."""
+    prompt so far (``cache``) and the streaming wave-index build (``wave``;
+    None under the full runtime)."""
     cache: List[wa.DenseCache]
     wave: List[Any]
 
 
 def init_prefill_chunk_state(cfg: ModelConfig, B: int, max_ctx: int, *,
-                             chunk: int, gen_headroom: int = 4096,
+                             runtime: str = "retro", chunk: int,
+                             gen_headroom: int = 4096,
                              device="cuda") -> PrefillChunkState:
     """``max_ctx`` pins the admission geometry to the engine's decode state
-    so the finalized state grafts into the shared batch."""
+    so the finalized state grafts into the shared batch. The full runtime's
+    cache holds ``max_ctx + gen_headroom`` slots (it becomes the serve
+    state); the retro admission cache only needs the prompt."""
     a, retro, dt = cfg.attn, cfg.retro, torch_dtype(cfg)
     plan = plan_zones(max_ctx, retro, gen_headroom)
+    cache_len = max_ctx if runtime == "retro" else max_ctx + gen_headroom
     caches, waves = [], []
     for _ in range(cfg.n_layers):
-        z = lambda: torch.zeros((B, a.n_kv_heads, max_ctx, a.head_dim),
-                                dtype=dt, device=device)
-        caches.append(wa.DenseCache(
-            z(), z(), torch.zeros((B,), dtype=torch.int32, device=device)))
+        caches.append(wa.init_dense_cache(B, a.n_kv_heads, cache_len,
+                                          a.head_dim, dt, device))
         waves.append(init_chunked_prefill(B, a.n_kv_heads, a.head_dim,
                                           plan.m_max, retro, chunk, dt,
-                                          device=device))
+                                          device=device)
+                     if runtime == "retro" else None)
     return PrefillChunkState(cache=caches, wave=waves)
 
 
@@ -171,7 +246,8 @@ def _chunk_attention(q, cache: wa.DenseCache, t0, clens, *, window=None,
 
 
 def prefill_chunk(params, cfg: ModelConfig, tokens, state: PrefillChunkState,
-                  *, chunk_lens=None) -> Tuple[torch.Tensor, PrefillChunkState]:
+                  *, runtime: str = "retro", chunk_lens=None
+                  ) -> Tuple[torch.Tensor, PrefillChunkState]:
     """Process the next prompt chunk. tokens: (B, C) right-padded; returns
     (logits at each row's last valid chunk position, new state)."""
     a, retro = cfg.attn, cfg.retro
@@ -194,7 +270,9 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, state: PrefillChunkState,
         x = x + o.reshape(B, C, -1) @ lp["attn"]["wo"]
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         y = _ffn(lp, h, cfg)
-        waves.append(prefill_append_chunk(wave_l, k, v, retro, clens))
+        if runtime == "retro":
+            wave_l = prefill_append_chunk(wave_l, k, v, retro, clens)
+        waves.append(wave_l)
         caches.append(cache_l)
         x = x + y
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -205,25 +283,38 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, state: PrefillChunkState,
 
 
 def finalize_prefill_chunk(cfg: ModelConfig, state: PrefillChunkState, *,
+                           runtime: str = "retro",
                            total_len: int) -> ServeState:
-    """Close a chunked admission: cluster the tail and install the local
-    window of every layer's wave index."""
+    """Close a chunked admission: the retro runtime clusters the tail and
+    installs the local window of every layer's wave index (the state
+    ``prefill_build`` gives); the full runtime's admission cache is the
+    serve state as it is."""
+    if runtime != "retro":
+        return ServeState(kv=state.cache)
     return ServeState(kv=[prefill_finalize(w, cfg.retro, total_len)
                           for w in state.wave])
 
 
 def decode_step(params, cfg: ModelConfig, state: ServeState, token, *,
-                plan: ZonePlan, active: Optional[torch.Tensor] = None,
+                runtime: str = "retro", plan: ZonePlan,
+                inline_flush: bool = False,
+                active: Optional[torch.Tensor] = None,
                 attn_impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, ServeState]:
-    """One generation step (retro runtime). token: (B,) -> logits (B, V)
-    f32. ``active``: optional (B,) bool slot mask — free rows skip the KV
-    append; their logits are discarded. ``attn_impl``: "jnp", "fused" or
-    "pallas"; None defers to ``cfg.retro.attn_impl``."""
+    """One generation step. token: (B,) -> logits (B, V) f32.
+
+    ``active``: optional (B,) bool slot mask — free rows skip the KV append;
+    their logits are discarded. ``attn_impl`` (retro runtime): "jnp",
+    "fused" or "pallas"; None defers to ``cfg.retro.attn_impl``.
+    ``inline_flush=True`` runs the staging-buffer flush inside the step
+    (``maybe_flush``); the serve engine flushes between steps instead.
+    The full runtime reads the longest row's length back once per step, so
+    its attention reads only the cache prefix any row can use."""
     a, retro = cfg.attn, cfg.retro
     impl = wa.resolve_attn_impl(attn_impl or retro.attn_impl)
     x = embed_tokens(params, cfg, token)                       # (B, D)
     B = x.shape[0]
+    span = int(state.kv[0].length.max()) + 1 if runtime != "retro" else None
     kv = []
     for lp, lstate, window in zip(params["layers"], state.kv, params["window"]):
         pos = lstate.length                                    # (B,)
@@ -232,9 +323,17 @@ def decode_step(params, cfg: ModelConfig, state: ServeState, token, *,
                                   a.n_kv_heads, a.head_dim, pos[:, None],
                                   a.rope_theta)
         q, k, v = q[:, 0], k[:, 0], v[:, 0]                    # (B, H*, hd)
-        lstate = append_token(lstate, k, v, active=active)
-        o = wa.wave_attention_decode(q, lstate, retro, plan, window=window,
-                                     softcap=a.softcap, impl=impl).out
+        if runtime == "retro":
+            lstate = append_token(lstate, k, v, active=active)
+            o = wa.wave_attention_decode(q, lstate, retro, plan,
+                                         window=window, softcap=a.softcap,
+                                         impl=impl).out
+            if inline_flush:
+                lstate = maybe_flush(lstate, retro)
+        else:
+            lstate = wa.dense_cache_append(lstate, k, v, active=active)
+            o = wa.full_attention_decode(q, lstate, window=window,
+                                         softcap=a.softcap, span=span)
         x = x + o.reshape(B, -1) @ lp["attn"]["wo"]
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + _ffn(lp, h, cfg)
@@ -342,12 +441,30 @@ def offload_flush(cfg: ModelConfig, lives: List[Dict], rows):
 
 
 def init_serve_state(cfg: ModelConfig, B: int, seq_len: int, *,
-                     gen_headroom: int = 4096, device="cuda") -> ServeState:
-    """All-free decode batch (every per-row counter at zero) awaiting
-    per-slot grafts: the reference's ``zero_fill=True`` state."""
-    a, retro = cfg.attn, cfg.retro
+                     runtime: str = "retro", gen_headroom: int = 4096,
+                     zero_fill: bool = False, device="cuda") -> ServeState:
+    """Zero-initialised serve state with the structure a prefill gives.
+    ``zero_fill=True`` leaves every per-row counter at zero (an all-free
+    continuous batch awaiting per-slot grafts) instead of pretending each
+    row holds a full ``seq_len`` context."""
+    a, retro, dt = cfg.attn, cfg.retro, torch_dtype(cfg)
     plan = plan_zones(seq_len, retro, gen_headroom)
-    return ServeState(kv=[
-        init_wave_state(B, a.n_kv_heads, a.head_dim, plan.m_max, retro,
-                        torch_dtype(cfg), device)
-        for _ in range(cfg.n_layers)])
+    kv = []
+    for _ in range(cfg.n_layers):
+        if runtime == "retro":
+            st = init_wave_state(B, a.n_kv_heads, a.head_dim, plan.m_max,
+                                 retro, dt, device)
+            if not zero_fill:
+                full = lambda n: torch.full((B,), n, dtype=torch.int32,
+                                            device=device)
+                st = st._replace(length=full(seq_len),
+                                 local_len=full(retro.local),
+                                 n_clusters=full(plan.m_max))
+        else:
+            st = wa.init_dense_cache(B, a.n_kv_heads, seq_len + gen_headroom,
+                                     a.head_dim, dt, device)
+            if not zero_fill:
+                st = st._replace(length=torch.full(
+                    (B,), seq_len, dtype=torch.int32, device=device))
+        kv.append(st)
+    return ServeState(kv=kv)

@@ -1,14 +1,20 @@
-"""Continuous-batching serving engine with chunked admission and a decode
-loop that reads ids back once per step, one step late.
+"""Continuous-batching serving engine with chunked or blocking admission
+and a decode loop that reads ids back once per step, one step late.
 
-Port of ``repro/serving/engine.py`` (retro runtime, chunked admission,
-every decode-attention impl, the direct store and the host-offload plane;
-blocking admission, ``runtime="full"`` and ``run_wave`` are not ported yet).
+Port of ``repro/serving/engine.py``: both serve runtimes ("retro", the wave
+index; "full", a dense KV cache), both admission modes, every
+decode-attention impl, the direct store and the host-offload plane. Greedy
+sampling only (the reference's ``temperature > 0`` is not ported yet).
 
-The decode loop runs a fixed number of slots. A request's prompt is consumed
-one fixed-size chunk per scheduler iteration, interleaved between decode
-steps; when its last chunk is in, the finalized single-slot wave state is
-grafted into the batch state. First tokens of all requests admitted in the
+The decode loop runs a fixed number of slots. Under chunked admission (the
+default) a request's prompt is consumed one fixed-size chunk per scheduler
+iteration, interleaved between decode steps; when its last chunk is in, the
+finalized single-slot state is grafted into the batch state. Blocking
+admission prefills a free slot's whole prompt (right-padded to a multiple
+of ``prefill_bucket``) in one pass before the next decode step; configs
+with block-sparse prefill always admit this way. The full runtime reads the
+longest row's length back once per decode step (see
+``transformer.decode_step``). First tokens of all requests admitted in the
 same iteration are sampled on device and read back with one coalesced copy.
 Decode sampling stays on device: step t's ids are copied to pinned host
 memory behind an event and harvested after step t+1 has been enqueued, so
@@ -165,7 +171,8 @@ class ServeMetrics:
 
 @dataclass
 class _Admission:
-    """One slot's in-progress chunked admission."""
+    """One slot's admission: a chunked one in progress, or a finished
+    blocking prefill (its logits)."""
     req: Request
     cstate: Any = None                  # PrefillChunkState
     consumed: int = 0
@@ -550,9 +557,13 @@ class _OffloadPlane:
 
 class ServeEngine:
     """``serve(requests, batch_size)`` — continuous scheduler over a slot
-    batch. ``max_context`` pins the decode geometry (zone plan, cluster-store
+    batch. ``runtime``: "retro" (the wave index) or "full" (dense cache).
+    ``max_context`` pins the decode geometry (zone plan, cluster-store
     capacity); a request's outputs do not depend on what shares the batch.
-    ``attn_impl`` selects the decode-attention implementation ("jnp"
+    ``admission``: "chunked" (``prefill_chunk`` tokens per scheduler
+    iteration) or "blocking" (one prefill per request; ``prefill_bucket``
+    > 1 right-pads prompts up to a multiple of it). ``attn_impl`` selects
+    the decode-attention implementation ("jnp"
     reference, "fused" paged kernel, "pallas" gathered-buffer kernel); None
     defers to ``cfg.retro.attn_impl``. ``offload`` (None: the config's)
     serves with the cluster stores in host memory behind a device block
@@ -562,8 +573,10 @@ class ServeEngine:
     ``fetch_backoff_s`` shape its miss fetches. ``device`` defaults to
     ``cuda`` and raises when there is no card."""
 
-    def __init__(self, cfg: ModelConfig, params, *, gen_headroom: int = 1024,
-                 max_context: Optional[int] = None,
+    def __init__(self, cfg: ModelConfig, params, *, runtime: str = "retro",
+                 gen_headroom: int = 1024,
+                 max_context: Optional[int] = None, prefill_bucket: int = 1,
+                 admission: str = "chunked",
                  prefill_chunk: int = 256, attn_impl: Optional[str] = None,
                  offload: Optional[bool] = None,
                  cache_clusters: Optional[int] = None,
@@ -573,21 +586,26 @@ class ServeEngine:
                  fetch_deadline_s: Optional[float] = None,
                  fetch_retries: int = 2, fetch_backoff_s: float = 1e-3,
                  max_decode_steps: Optional[int] = None, device=None):
+        if admission not in ("chunked", "blocking"):
+            raise ValueError(f"unknown admission mode {admission!r}")
         self.device = resolve_device(device)
         M._dense_only(cfg)
         self.attn_impl = resolve_attn_impl(attn_impl or cfg.retro.attn_impl)
         self.cfg = cfg
         self.params = params
+        self.runtime = runtime
         self.gen_headroom = gen_headroom
         self.max_context = max_context
+        self.prefill_bucket = max(1, prefill_bucket)
+        self.admission = admission
         self.prefill_chunk = max(1, prefill_chunk)
         self.max_decode_steps = max_decode_steps
         retro = cfg.retro
         self.offload = retro.offload if offload is None else offload
-        if self.offload and not M.supports_offload(cfg):
+        if self.offload and not M.supports_offload(cfg, runtime):
             raise ValueError("host-offload serving requires the retro "
                              f"runtime on an attention family, got "
-                             f"family={cfg.family!r}")
+                             f"runtime={runtime!r} family={cfg.family!r}")
         self.cache_clusters = retro.cache_clusters if cache_clusters is None \
             else cache_clusters
         self.cache_frac = retro.cache_frac if cache_frac is None \
@@ -599,6 +617,16 @@ class ServeEngine:
         self.fetch_deadline_s = fetch_deadline_s
         self.fetch_retries = fetch_retries
         self.fetch_backoff_s = fetch_backoff_s
+
+    def _bucket(self, L: int) -> int:
+        """Blocking admission's prefill length for an L-token prompt: L
+        rounded up to a multiple of ``prefill_bucket``; prompts shorter than
+        sink + local are too short to mask a ragged tail and keep L."""
+        retro = self.cfg.retro
+        if L < retro.sink + retro.local:
+            return L
+        b = self.prefill_bucket
+        return L if b <= 1 else ((L + b - 1) // b) * b
 
     def _resolve_cache_clusters(self, m_max: int) -> int:
         """Device block-cache slots: the absolute override or a fraction of
@@ -617,20 +645,28 @@ class ServeEngine:
     def serve(self, requests: List[Request],
               batch_size: int) -> ServeMetrics:
         """Serve a FIFO queue through ``batch_size`` continuous slots."""
-        cfg, dev = self.cfg, self.device
+        cfg, dev, rt = self.cfg, self.device, self.runtime
         if not requests:
             raise ValueError("no requests")
-        max_ctx = self.max_context or max(len(r.prompt) for r in requests)
-        min_len = cfg.retro.sink + 1
+        max_ctx = self.max_context or max(self._bucket(len(r.prompt))
+                                          for r in requests)
+        min_len = cfg.retro.sink + 1 if rt == "retro" else 1
         for r in requests:
             if not min_len <= len(r.prompt) <= max_ctx:
                 raise ValueError(f"prompt length {len(r.prompt)} outside "
                                  f"[{min_len}, {max_ctx}]")
         B = batch_size
+        # chunk attention is exact: configs that opt into block-sparse
+        # prefill keep the monolithic (sparse) admission
+        chunked = self.admission == "chunked" \
+            and M.supports_chunked_prefill(cfg, rt) \
+            and cfg.sparse_prefill_blocks == 0
         plan = plan_zones(max_ctx, cfg.retro, self.gen_headroom)
-        state = M.make_serve_state(cfg, B, max_ctx,
-                                   gen_headroom=self.gen_headroom, device=dev)
+        state = M.make_serve_state(cfg, B, max_ctx, runtime=rt,
+                                   gen_headroom=self.gen_headroom,
+                                   zero_fill=True, device=dev)
         lbuf = local_buffer_size(cfg.retro)
+        use_flush = rt == "retro"
         plane = _OffloadPlane(self, B, max_ctx) if self.offload else None
 
         queue = deque(requests)
@@ -665,12 +701,33 @@ class ServeEngine:
             t0 = time.perf_counter()
             completed: List[Tuple[int, _Admission]] = []
             for i in range(B):
+                if not chunked:
+                    if active[i] or slots[i] is not None or not queue:
+                        continue
+                    req = queue.popleft()
+                    L = len(req.prompt)
+                    S_b = min(self._bucket(L), max_ctx)
+                    toks = np.zeros((1, S_b), np.int32)
+                    toks[0, :L] = req.prompt
+                    logits, st1 = M.apply_prefill(
+                        self.params, cfg, {"tokens": to_device(toks, dev)},
+                        runtime=rt, plan=plan, gen_headroom=self.gen_headroom,
+                        lengths=to_device(np.array([L], np.int32), dev),
+                        cache_len=max_ctx + self.gen_headroom)
+                    metrics.prefill_tokens += L
+                    state = graft(state, st1, i)
+                    if plane is not None:       # device->host store offload
+                        plane.admit_slot(i, st1)
+                    completed.append((i, _Admission(req=req, logits=logits,
+                                                    consumed=L)))
+                    continue
                 if admitting[i] is None and not active[i] \
                         and slots[i] is None and queue:
                     admitting[i] = _Admission(
                         req=queue.popleft(),
                         cstate=M.make_prefill_chunk_state(
-                            cfg, 1, max_ctx, chunk=self.prefill_chunk,
+                            cfg, 1, max_ctx, runtime=rt,
+                            chunk=self.prefill_chunk,
                             gen_headroom=self.gen_headroom, device=dev))
                 adm = admitting[i]
                 if adm is None:
@@ -681,12 +738,13 @@ class ServeEngine:
                 toks[0, :n] = adm.req.prompt[adm.consumed:adm.consumed + n]
                 adm.logits, adm.cstate = M.apply_prefill_chunk(
                     self.params, cfg, {"tokens": to_device(toks, dev)},
-                    adm.cstate,
+                    adm.cstate, runtime=rt,
                     chunk_lens=to_device(np.array([n], np.int32), dev))
                 adm.consumed += n
                 metrics.prefill_tokens += n
                 if adm.consumed >= L:
-                    st1 = M.finalize_prefill_chunk(cfg, adm.cstate, total_len=L)
+                    st1 = M.finalize_prefill_chunk(cfg, adm.cstate,
+                                                   runtime=rt, total_len=L)
                     state = graft(state, st1, i)
                     if plane is not None:       # device->host store offload
                         plane.admit_slot(i, st1)
@@ -714,6 +772,9 @@ class ServeEngine:
                     active[i] = True
                     slot_steps[i] = 0
                     upd[i], mask[i] = tok, True
+                    # device local_len after admission: both admissions give
+                    # ``local`` (``_bucket`` pads only prompts of at least
+                    # sink + local tokens)
                     staged[i] = min(cfg.retro.local,
                                     max(adm.consumed - cfg.retro.sink, 0))
                     if len(req.out_tokens) >= req.max_new_tokens:
@@ -732,8 +793,8 @@ class ServeEngine:
                                                       active)
                 else:
                     logits, state = M.apply_decode(
-                        self.params, cfg, state, tokens_dev, plan=plan,
-                        active=to_device(active, dev),
+                        self.params, cfg, state, tokens_dev, runtime=rt,
+                        plan=plan, active=to_device(active, dev),
                         attn_impl=self.attn_impl)
                 new_sampled = self._sample_dev(logits)   # device, no sync
                 cur = _Readback(new_sampled)
@@ -779,7 +840,7 @@ class ServeEngine:
             metrics.decode_s += time.perf_counter() - t0
 
             # ---- per-row masked index update (off the per-step hot path) ---
-            if (staged >= lbuf).any():
+            if use_flush and (staged >= lbuf).any():
                 rows = staged >= lbuf
                 if plane is not None:
                     state = plane.flush(state, rows)
@@ -792,3 +853,9 @@ class ServeEngine:
         self.last_plane = plane             # inspection hooks (tests, smoke)
         self.last_state = state
         return metrics
+
+    def run_wave(self, requests: List[Request]) -> ServeMetrics:
+        """Serve one batch of requests with one slot each. (The reference's
+        ``extra_batch`` carries vlm/audio inputs, whose families are not
+        ported.)"""
+        return self.serve(requests, batch_size=len(requests))

@@ -46,3 +46,22 @@ def test_zone_plan_and_layout_match(seq_len):
             ref_wi.local_buffer_size(ref_r)
         assert tuple(port_zones.plan_zones(seq_len, port_r, 512)) == \
             tuple(ref_zones.plan_zones(seq_len, ref_r, 512))
+
+
+@pytest.mark.parametrize("which", ["CONFIG", "reduced"])
+@pytest.mark.parametrize("arch", ["gemma2_9b", "gemma3_1b", "minitron_8b"])
+def test_dense_config_fields_match(arch, which):
+    """The other three ``family="dense"`` configs, published and reduced,
+    field-equal to the reference's, under both their names."""
+    port = registry.get_config(arch) if which == "CONFIG" \
+        else registry.reduced_config(arch)
+    ref = ref_registry.get_config(arch) if which == "CONFIG" \
+        else ref_registry.reduced_config(arch)
+    assert [f.name for f in dataclasses.fields(port)] == \
+        [f.name for f in dataclasses.fields(ref)]
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.layer_kinds() == ref.layer_kinds()
+    alias = arch.replace("_", "-")
+    assert registry.ALIASES[alias] == arch
+    assert (registry.get_config(alias) if which == "CONFIG"
+            else registry.reduced_config(alias)) == port

@@ -2,7 +2,8 @@
 ``cuda``; skipped without a card: a CUDA kernel has no CPU mode): the paged
 and the gathered-buffer wave attention (including many splits, several
 tiles per split through the cp.async ring, an all-empty row, and the same
-bits from two calls), the block gather and the k-means step. Imports no
+bits from two calls, and group sizes mixed in one process), the block
+gather and the k-means step. Imports no
 JAX, so it also runs on a machine with the card and without JAX:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
@@ -121,6 +122,29 @@ def test_cuda_merge_kernel_matches_twin(cuda, case, softcap):
         assert ops.merge_grid(*args)["tiles_per_split"] == ops.MAX_TPS
     if case == "many_splits":
         assert ops.merge_grid(*args)["splits"] >= 90
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["paged_wave_attention", "wave_attention_merge"])
+def test_cuda_attention_across_group_sizes(cuda, op):
+    """G 2 with many splits, G 4 with few, G 2 with many again, in one
+    process (as a serving run of one config after another's shapes): the
+    combine kernel is shared by every G, so a G-4 call must not lower the
+    shared-memory limit that the G-2 call needs."""
+    make = random_decode_inputs if op == "paged_wave_attention" \
+        else random_merge_inputs
+    many = dict(CASES["many_splits"]) if op == "paged_wave_attention" \
+        else dict(MERGE_CASES["many_splits"])
+    few = dict(SMALL, G=4) if op == "paged_wave_attention" \
+        else dict(MERGE_SMALL, G=4, seed=7)
+    kern, plain = getattr(ops, op), getattr(ops, op + "_plain")
+    for kw in (many, few, many):
+        args = [a.to(cuda) for a in make(**kw)]
+        out = kern(*args, softcap=50.0)
+        torch.cuda.synchronize()
+        ref = plain(*args, softcap=50.0)
+        assert (out - ref).abs().max().item() <= \
+            2e-5 * (1 + ref.abs().max().item())
 
 
 @pytest.mark.cuda

@@ -262,3 +262,216 @@ def test_port_imports_no_jax():
         # the docstrings name their reference modules as paths, never as
         # importable dotted names
         assert not pat.search(text), f
+
+
+# ---------------------------------------------------------------------------
+# Both runtimes x both admission modes, against the reference's serve
+# ---------------------------------------------------------------------------
+
+SERVE_LENS, SERVE_NEWS, SERVE_CTX = (200, 130, 160), (40, 6, 12), 256
+# name -> (runtime, admission, engine knobs)
+SERVE_CASES = {
+    "retro_chunked": ("retro", "chunked", {}),
+    "retro_blocking": ("retro", "blocking", {}),
+    "full_chunked": ("full", "chunked", {}),
+    "full_blocking": ("full", "blocking", {}),
+    "retro_blocking_bucket64": ("retro", "blocking", dict(prefill_bucket=64)),
+    "retro_blocking_offload": ("retro", "blocking",
+                               dict(offload=True, cache_frac=0.25)),
+}
+
+
+def _short_flush(cfg):
+    """A 32-token update segment: request 0's 40 new tokens cross a flush."""
+    return cfg.replace(tie_embeddings=False, retro=dataclasses.replace(
+        cfg.retro, update_segment=32, local=16))
+
+
+def _serve_summary(reqs, m):
+    return dict(tokens=[r.out_tokens for r in reqs], steps=m.steps,
+                cache=dataclasses.asdict(m.cache),
+                degraded=m.degraded_steps)
+
+
+@pytest.fixture(scope="module")
+def serve_models():
+    ref_cfg = _short_flush(ref_gemma.reduced())
+    cfg = _short_flush(gemma2_2b.reduced())
+    ref_params = RM.init_params(ref_cfg, jax.random.PRNGKey(4))
+    return ref_cfg, ref_params, cfg, params_from_numpy(
+        _np_tree(ref_params), cfg, "cpu")
+
+
+def _serve_prompts(vocab):
+    rng = np.random.default_rng(21)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in SERVE_LENS]
+
+
+@pytest.fixture(scope="module")
+def ref_serves(serve_models):
+    """Every case served once by the reference's engine."""
+    from repro.serving import engine as RE
+    ref_cfg, ref_params, _, _ = serve_models
+    out = {}
+    for name, (runtime, admission, kw) in SERVE_CASES.items():
+        eng = RE.ServeEngine(ref_cfg, ref_params, runtime=runtime,
+                             admission=admission, gen_headroom=64,
+                             max_context=SERVE_CTX, prefill_chunk=48, **kw)
+        reqs = [RE.Request(prompt=p, max_new_tokens=n) for p, n in
+                zip(_serve_prompts(ref_cfg.vocab), SERVE_NEWS)]
+        out[name] = _serve_summary(reqs, eng.serve(reqs, batch_size=2))
+    return out
+
+
+def _port_serve(cfg, params, runtime, admission, **kw):
+    eng = ServeEngine(cfg, params, runtime=runtime, admission=admission,
+                      gen_headroom=64, max_context=SERVE_CTX,
+                      prefill_chunk=48, device="cpu", **kw)
+    reqs = [Request(prompt=p, max_new_tokens=n)
+            for p, n in zip(_serve_prompts(cfg.vocab), SERVE_NEWS)]
+    m = eng.serve(reqs, batch_size=2)
+    return _serve_summary(reqs, m), m, eng
+
+
+@pytest.mark.parametrize("case", list(SERVE_CASES))
+def test_serve_runtime_admission_matches_reference(serve_models, ref_serves,
+                                                   case):
+    """A ragged queue of 3 requests on 2 slots, one request crossing a
+    flush: the same tokens as the reference's serve (blocking + offload:
+    every wave-buffer counter too), and, unpadded, the same tokens as
+    chunked admission (a bucket-padded prefill segments its clustered
+    region by the padded length, so its clusters differ)."""
+    _, _, cfg, params = serve_models
+    runtime, admission, kw = SERVE_CASES[case]
+    got, m, eng = _port_serve(cfg, params, runtime, admission, **kw)
+    assert got == ref_serves[case]
+    assert (eng.runtime, eng.admission) == (runtime, admission)
+    assert m.tokens_out == sum(SERVE_NEWS)
+    assert m.prefill_tokens == sum(SERVE_LENS)
+    assert (m.flushes >= 1) == (runtime == "retro")
+    assert len(set(got["tokens"][0])) > 1
+    if kw.get("offload"):
+        assert m.cache.lookups > 0 and m.cache.bytes_over_link > 0
+    if "prefill_bucket" not in kw:
+        chunked, _, _ = _port_serve(cfg, params, runtime, "chunked")
+        assert got["tokens"] == chunked["tokens"]
+    kinds = {type(st).__name__ for st in eng.last_state.kv}
+    assert kinds == {"WaveState" if runtime == "retro" else "DenseCache"}
+
+
+def test_blocking_bucket_pads_prompts(serve_models):
+    """``prefill_bucket`` pads each blocking prefill up to its multiple
+    (prompts shorter than sink + local stay exact), and the geometry
+    follows the largest padded prompt."""
+    _, _, cfg, params = serve_models
+    eng = ServeEngine(cfg, params, admission="blocking", prefill_bucket=64,
+                      device="cpu")
+    assert [eng._bucket(n) for n in (200, 130, 128, 19, 20)] == \
+        [256, 192, 128, 19, 64]
+    assert ServeEngine(cfg, params, device="cpu")._bucket(130) == 130
+    seen = []
+    real = M.apply_prefill
+
+    def spy(params, cfg, batch, **kw):
+        seen.append((batch["tokens"].shape[1], int(kw["lengths"][0])))
+        return real(params, cfg, batch, **kw)
+
+    from unittest import mock
+    with mock.patch.object(M, "apply_prefill", spy):
+        reqs = [Request(p, 2) for p in _serve_prompts(cfg.vocab)]
+        eng.serve(reqs, batch_size=2)
+    assert seen == [(256, 200), (192, 130), (192, 160)]
+    assert eng.last_state.kv[0].k_store.shape[2] == \
+        plan_zones(256, cfg.retro, 1024).m_max
+
+
+def test_engine_rejects_bad_runtime_options(serve_models):
+    _, _, cfg, params = serve_models
+    with pytest.raises(ValueError, match="offload"):
+        ServeEngine(cfg, params, runtime="full", offload=True, device="cpu")
+    with pytest.raises(ValueError, match="admission"):
+        ServeEngine(cfg, params, admission="eager", device="cpu")
+    eng = ServeEngine(cfg, params, runtime="full", max_context=SERVE_CTX,
+                      device="cpu")
+    with pytest.raises(ValueError, match="outside"):      # min_len 1: ok
+        eng.serve([Request(np.arange(SERVE_CTX + 1, dtype=np.int32), 1)], 1)
+    m = eng.serve([Request(np.arange(3, dtype=np.int32), 2)], 1)
+    assert m.tokens_out == 2
+    with pytest.raises(ValueError, match="outside"):      # retro: sink + 1
+        ServeEngine(cfg, params, device="cpu").serve(
+            [Request(np.arange(3, dtype=np.int32), 2)], 1)
+
+
+def test_run_wave_serves_one_slot_each(serve_models):
+    _, _, cfg, params = serve_models
+    eng = ServeEngine(cfg, params, admission="blocking", device="cpu")
+    reqs = [Request(p, 3) for p in _serve_prompts(cfg.vocab)]
+    m = eng.run_wave(reqs)
+    assert m.n_slots == 3 and m.tokens_out == 9
+    assert all(r.done and len(r.out_tokens) == 3 for r in reqs)
+
+
+def test_serve_launcher_runtime_and_admission(capsys):
+    """``--runtime``, ``--admission`` and ``--prefill-bucket`` reach the
+    engine and the report names the runtime and admission it ran."""
+    from repro_torch.launch import serve
+    for flags, want in (([], "(retro, chunked admission"),
+                        (["--runtime", "full", "--admission", "blocking"],
+                         "(full, blocking admission"),
+                        (["--admission", "blocking", "--prefill-bucket",
+                          "32"], "(retro, blocking admission")):
+        serve.main(["--arch", "gemma2_2b", "--reduced", "--device", "cpu",
+                    "--requests", "2", "--prompt-lens", "40,50",
+                    "--new-tokens", "2", *flags])
+        out = capsys.readouterr().out
+        assert want in out and "req 1: prompt 50, out 2," in out, flags
+
+
+# ---------------------------------------------------------------------------
+# The other dense configs
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def dense_models():
+    from repro.configs import registry as ref_registry
+    from repro_torch.configs import registry
+    out = {}
+    for arch in ("gemma3_1b", "minitron_8b"):
+        ref_cfg = ref_registry.reduced_config(arch)
+        cfg = registry.reduced_config(arch)
+        ref_params = RM.init_params(ref_cfg, jax.random.PRNGKey(5))
+        out[arch] = (ref_cfg, ref_params, cfg,
+                     params_from_numpy(_np_tree(ref_params), cfg, "cpu"))
+    return out
+
+
+@pytest.mark.parametrize("attn_impl", ["fused", "jnp", "pallas"])
+@pytest.mark.parametrize("arch", ["gemma3_1b", "minitron_8b"])
+def test_dense_config_decode_matches_reference(dense_models, arch,
+                                               attn_impl):
+    """Reduced gemma3-1b (one KV head, G 4, a 5:1 local:global pattern
+    reduced to l/g) and minitron-8b (no softcap or window, untied head):
+    the reference's blocking prefill carried across, then six decode steps
+    under each impl, logits within 1e-4."""
+    ref_cfg, ref_params, cfg, params = dense_models[arch]
+    assert params["window"] == PT.layer_windows(cfg)
+    assert ("lm_head" in params) == (not cfg.tie_embeddings)
+    S = 200
+    toks = np.random.default_rng(6).integers(0, 512, (1, S)).astype(np.int32)
+    ref_plan = ref_plan_zones(S, ref_cfg.retro, 64)
+    _, ref_state = RM.apply_prefill(ref_params, ref_cfg,
+                                    {"tokens": jnp.asarray(toks)},
+                                    plan=ref_plan, gen_headroom=64)
+    state = serve_state_from_numpy(_np_tree(ref_state.kv._asdict()), "cpu")
+    dec = jax.jit(functools.partial(RT.decode_step, cfg=ref_cfg,
+                                    plan=ref_plan, attn_impl=attn_impl))
+    plan = plan_zones(S, cfg.retro, 64)
+    rng = np.random.default_rng(7)
+    for t in range(6):
+        tok = rng.integers(0, 512, (1,)).astype(np.int32)
+        ref_lg, ref_state = dec(ref_params, state=ref_state,
+                                token=jnp.asarray(tok))
+        lg, state = PT.decode_step(params, cfg, state, torch.from_numpy(tok),
+                                   plan=plan, attn_impl=attn_impl)
+        np.testing.assert_allclose(lg.numpy(), np.asarray(ref_lg), **TOL,
+                                   err_msg=f"step {t}")
