@@ -47,7 +47,24 @@
    every served path side by side;
 9. serves full-width minitron-8b (hd 128, G 4, untied head) through the
    paged kernel, checks its launch count and lengths, and times a captured
-   launch against its bound.
+   launch against its bound;
+10. holds the compiled decode stage at gemma2-2b's full width: for
+   "fused", "pallas", "jnp" and ``runtime="full"``, eager steps and
+   replays of the captured step from one state give the same logits bits
+   and ids, and a profiled replay launches 2 x 26 attention kernels.
+
+Every direct-store serve run above decodes through ``ServeEngine``'s
+compiled stage: the first step of the run eagerly, the rest as replays of
+one captured CUDA graph (``serving/graphs.py``). A wrapper's launch count
+sees the warm-up's launches and the capture's recorded ones, not a
+replay's: the script counts the calls made during capture (``LaunchTap``),
+adds them once per replay, checks one capture per run, and profiles one
+more replay to see the card launch that many. Each decode-step breakdown
+reports, in one call and from one state, the step run eagerly, replayed,
+and replayed from a capture with torch's fused gelu/silu (the MLP before
+the bf16 repair; phase 8 also the full runtime's old formulation, the
+cache upcast to f32, eagerly); after phase 7, phase 3's state is stepped
+again, to tell the state's layout from the machine's state.
 
 Each attention kernel call is two launches (split, combine); on every
 captured launch the script prints the split grid (rows x splits), checks
@@ -405,24 +422,107 @@ def edge_cases(full=True):
 # main path
 # ---------------------------------------------------------------------------
 
-class Capture:
+class LaunchTap:
     """Stands in for the ops module inside ``core.attention`` during a serve
-    run: forwards every call to the real wrapper and keeps a clone of the
+    run: forwards every call to the real wrapper, and counts the calls made
+    while a CUDA graph is being captured. A wrapper counts the launches a
+    capture records (its Python code runs once then), and no replay's,
+    which repeats them without Python: ``served`` turns the wrappers' counts
+    into the launches the run made."""
+
+    def __init__(self, ops):
+        import torch
+        self.capturing = lambda: torch.cuda.is_available() and \
+            torch.cuda.is_current_stream_capturing()
+        self.ops = ops
+        self.recorded = {}              # op -> calls made during capture
+
+    def _call(self, op, args, softcap):
+        if self.capturing():
+            self.recorded[op] = self.recorded.get(op, 0) + 1
+        return getattr(self.ops, op)(*args, softcap=softcap)
+
+    def paged_wave_attention(self, *args, softcap=None):
+        return self._call("paged_wave_attention", args, softcap)
+
+    def wave_attention_merge(self, *args, softcap=None):
+        return self._call("wave_attention_merge", args, softcap)
+
+    def served(self, counts, graph):
+        """The launches of a serve run from the wrappers' ``counts``: the
+        eager calls (counts less the captures' recorded calls) plus each
+        replay's, which are one capture's."""
+        out = dict(counts)
+        for op, n in self.recorded.items():
+            out[op] += graph.replays * (n // graph.captures) - n
+        return out
+
+
+def tapped_serve(engine, reqs, batch, tap):
+    """``engine.serve`` with ``tap`` in place of ``core.attention``'s ops
+    module, every kernel's launch count set to 0 just before; returns the
+    metrics, the wall seconds and the served launches (``LaunchTap``)."""
+    import torch
+    from repro_torch.core import attention
+    real_ops, real_gather = attention.wa_ops, attention._gather_clusters
+    reset_launches()                                # count the main path only
+    attention.wa_ops = tap
+    attention._gather_clusters = getattr(tap, "gather", real_gather)
+    try:
+        t0 = time.perf_counter()
+        m = engine.serve(reqs, batch_size=batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        attention.wa_ops, attention._gather_clusters = real_ops, real_gather
+    counts = {k: fn.launches for k, fn in launch_counters().items()}
+    return m, wall, tap.served(counts, engine.last_graph)
+
+
+def profiled_replay(graph, path, n_layers):
+    """One more replay of a served step's graph under ``torch.profiler``:
+    the device launches of the path's attention kernel (a split and a
+    combine launch per layer, ``2 x n_layers``; none for the full
+    runtime), which the wrappers' counts cannot see."""
+    import numpy as np
+    import torch
+    tag = KERNEL_TAGS.get(path)
+    with torch.inference_mode():
+        rows, _ = _profile_rows(
+            lambda: graph.step(np.ones(graph.tokens.shape[0], bool)), 1)
+    n = sum(c for _, k, c in rows if tag and tag in k)
+    want = 2 * n_layers if tag else 0
+    if n != want:
+        raise AssertionError(f"a profiled replay launched {n} {path} "
+                             f"kernels, want {want}")
+    return dict(attention_launches=n, kernels=sum(r[2] for r in rows))
+
+
+class Capture(LaunchTap):
+    """A ``LaunchTap`` that also keeps a clone of the
     arguments of one local-layer and one global-layer launch, taken when
     every row holds a real context (paged kernel: every row at position
     ``min_pos`` or later; gathered-buffer merge: every row's mask admits a
     token, which an empty slot's never does). For the merge's global-layer
     launch it also keeps the ids and stores its execution buffer was
-    gathered from (``gather`` stands in for ``_gather_clusters``)."""
+    gathered from (``gather`` stands in for ``_gather_clusters``).
+
+    A call made while a CUDA graph is being captured may neither read a
+    value back nor copy: it keeps references to its arguments, which live
+    on in the graph's memory and hold each replay's values. ``finish``,
+    after the serve run, takes a kind no eager call gave from the last
+    replay's arguments."""
 
     def __init__(self, ops, attention, n_layers, kinds, min_pos):
-        self.ops, self.n_layers, self.kinds = ops, n_layers, kinds
+        super().__init__(ops)
+        self.n_layers, self.kinds = n_layers, kinds
         self.min_pos = min_pos
         self.rowb = ops.ARG_NAMES.index("rowb")
         self.real_gather = attention._gather_clusters
         self.last_gather = None
         self.calls = 0
         self.taken = {}
+        self.in_graph = {}              # kind -> (layer, args refs, ...)
 
     def _kind(self):
         layer = self.calls % self.n_layers
@@ -433,22 +533,36 @@ class Capture:
         self.last_gather = (state, idx)
         return self.real_gather(state, idx)
 
-    def paged_wave_attention(self, *args, softcap=None):
-        layer, kind = self._kind()
-        if kind not in self.taken and \
-                int(args[self.rowb][..., 1].min()) >= self.min_pos:
-            self.taken[kind] = (layer, [a.clone() for a in args], softcap)
-        return self.ops.paged_wave_attention(*args, softcap=softcap)
+    def _ok(self, op, args):
+        if op == "paged_wave_attention":
+            return int(args[self.rowb][..., 1].min()) >= self.min_pos
+        return bool(args[3].any(-1).all())
 
-    def wave_attention_merge(self, *args, softcap=None):
+    def _take(self, op, kind, layer, args, softcap, gathered):
+        if op == "paged_wave_attention":
+            return (layer, [a.clone() for a in args], softcap)
+        st, idx = gathered
+        blocks = (idx.clone(), st.k_store.clone(), st.v_store.clone()) \
+            if kind == "g" else None
+        return (layer, [a.clone() for a in args], softcap, blocks)
+
+    def _call(self, op, args, softcap):
         layer, kind = self._kind()
-        if kind not in self.taken and bool(args[3].any(-1).all()):
-            st, idx = self.last_gather
-            blocks = (idx.clone(), st.k_store.clone(), st.v_store.clone()) \
-                if kind == "g" else None
-            self.taken[kind] = (layer, [a.clone() for a in args], softcap,
-                                blocks)
-        return self.ops.wave_attention_merge(*args, softcap=softcap)
+        if self.capturing():
+            self.in_graph.setdefault(kind, (layer, args, softcap,
+                                            self.last_gather))
+        elif kind not in self.taken and self._ok(op, args):
+            self.taken[kind] = self._take(op, kind, layer, args, softcap,
+                                          self.last_gather)
+        return super()._call(op, args, softcap)
+
+    def finish(self, op):
+        """After the run: the kinds still missing, from the last replay."""
+        for kind, (layer, args, softcap, gathered) in self.in_graph.items():
+            if kind not in self.taken and self._ok(op, args):
+                self.taken[kind] = self._take(op, kind, layer, args, softcap,
+                                              gathered)
+        self.in_graph = {}
 
 
 def reset_launches():
@@ -505,25 +619,20 @@ def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
         raise AssertionError(f"engine resolved {engine.attn_impl}")
     cap = Capture(ops, attention, cfg.n_layers, cfg.layer_kinds(),
                   min_capture_pos)
-    real_ops = attention.wa_ops
-    if device == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    reset_launches()                                # count the main path only
-    attention.wa_ops = cap
-    attention._gather_clusters = cap.gather
-    try:
-        t0 = time.perf_counter()
-        m = engine.serve(reqs, batch_size=batch)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        attention.wa_ops = real_ops
-        attention._gather_clusters = cap.real_gather
-    counts = {k: fn.launches for k, fn in launch_counters().items()}
-    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    m, wall, counts = tapped_serve(engine, reqs, batch, cap)
+    peak = torch.cuda.max_memory_allocated()
     path = IMPL_KERNEL[attn_impl] if runtime == "retro" else None
+    if path is not None:
+        cap.finish(path)
+    graph = engine.last_graph
+    if (graph.captures, graph.replays) != (1, m.steps - 1):
+        raise AssertionError(f"{graph.captures} captures, {graph.replays} "
+                             f"replays for {m.steps} decode steps")
+    if path is not None and cap.recorded != {path: cfg.n_layers}:
+        raise AssertionError(f"the capture recorded {cap.recorded}")
 
     # --- what came out ---
     want = {k: 0 for k in counts}
@@ -568,17 +677,28 @@ def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
                prefill_tps=m.prefill_tps, decode_s=m.decode_s,
                decode_tps=m.decode_tps, ttft_s=[r.ttft_s for r in reqs],
                itl_p50_ms=m.itl_p50_s * 1e3, itl_p99_ms=m.itl_p99_s * 1e3,
-               peak_mem_gib=peak / 2**30)
+               peak_mem_gib=peak / 2**30, held_before_gib=held / 2**30,
+               graph_captures=graph.captures,
+               graph_replays=graph.replays)
     log(f"  {cfg.arch_id} {runtime}/{admission}/{attn_impl}: decode steps "
-        f"{m.steps}, launches {counts} (= {cfg.n_layers} x steps of "
-        f"{path}), flushes {m.flushes}")
+        f"{m.steps} (1 warm-up + {graph.replays} replays of "
+        f"{graph.captures} captured graph), launches {counts} "
+        f"(= {cfg.n_layers} x steps of {path}), flushes {m.flushes}")
     log(f"  TTFT s {['%.3f' % t for t in res['ttft_s']]}; prefill "
         f"{res['prefill_tps']:.1f} tok/s; decode {res['decode_tps']:.2f} "
         f"tok/s; ITL p50/p99 {res['itl_p50_ms']:.2f}/"
         f"{res['itl_p99_ms']:.2f} ms; peak mem "
-        f"{res['peak_mem_gib']:.2f} GiB; wall {wall:.1f} s")
+        f"{res['peak_mem_gib']:.2f} GiB ({res['held_before_gib']:.2f} held "
+        f"before the run); wall {wall:.1f} s")
     if path is not None and set(cap.taken) != set(cfg.layer_kinds()):
         raise AssertionError(f"captured launches {sorted(cap.taken)}")
+    # the replays' launches are counted from the capture; a profiled replay
+    # shows the card running that many
+    res["profiled_replay"] = profiled_replay(graph, path, cfg.n_layers)
+    log(f"  one profiled replay after the run: "
+        f"{res['profiled_replay']['attention_launches']} attention kernel "
+        f"launches (split + combine per layer), "
+        f"{res['profiled_replay']['kernels']} kernels")
     return res, cap.taken, engine
 
 
@@ -641,47 +761,37 @@ def device_kernels(prof):
     return sorted(rows, reverse=True)
 
 
-def decode_breakdown(engine, max_ctx, steps=8):
-    """Where one decode step's time goes, on the state the serve run left
-    (both slots active): host time to enqueue a step, wall time of a synced
-    step, and the device kernel time by name over ``steps`` steps from
-    ``torch.profiler`` (device busy share = kernel time / wall time)."""
+def _profile_rows(fn, steps):
+    """``fn`` run ``steps`` times under ``torch.profiler``: (device kernel
+    rows, synced wall seconds)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.zones import plan_zones
-    from repro_torch.models import model as M
-    cfg, state = engine.cfg, engine.last_state
-    B = state.kv[0].length.shape[0]
-    plan = plan_zones(max_ctx, cfg.retro, engine.gen_headroom)
-    tok = torch.zeros((B,), dtype=torch.int32, device="cuda")
-    act = torch.ones((B,), dtype=torch.bool, device="cuda")
-
-    def step(st):
-        lg, st = M.apply_decode(engine.params, cfg, st, tok,
-                                runtime=engine.runtime, plan=plan,
-                                active=act, attn_impl=engine.attn_impl)
-        return lg.argmax(-1), st
-
-    with torch.inference_mode():
-        for _ in range(2):
-            _, state = step(state)
-        torch.cuda.synchronize()
-        enq, wall = [], []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
         for _ in range(steps):
-            t0 = time.perf_counter()
-            _, state = step(state)
-            enq.append(time.perf_counter() - t0)
-            torch.cuda.synchronize()
-            wall.append(time.perf_counter() - t0)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                _, state = step(state)
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
-    rows = device_kernels(prof)
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return device_kernels(prof), wall
+
+
+def step_breakdown(fn, steps=8):
+    """Host time to enqueue one step ``fn`` (no sync), the synced wall of a
+    step, and device kernel time by name over ``steps`` profiled steps
+    (device busy share = kernel time / the profiled wall)."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    enq, wall = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        fn()
+        enq.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    rows, prof_wall = _profile_rows(fn, steps)
     busy_s = sum(r[0] for r in rows) / 1e6
     # each attention kernel call is a split and a combine launch, both named
     # after the kernel's tile source
@@ -689,29 +799,195 @@ def decode_breakdown(engine, max_ctx, steps=8):
                        / 1e3 / steps,
                        launches_per_step=sum(c for _, k, c in rows
                                              if tag in k) / steps)
-            for name, tag in (("paged_wave_attention", "PagedSrc"),
-                              ("wave_attention_merge", "MergeSrc"))}
-    res = dict(enqueue_ms=1e3 * sum(enq) / steps,
-               step_wall_ms=1e3 * sum(wall) / steps,
-               profiled_step_ms=1e3 * prof_wall / steps,
-               device_busy_ms=1e3 * busy_s / steps,
-               device_busy_share=busy_s / prof_wall,
-               attention_kernels=attn,
-               top_kernels=[dict(name=k[:90], ms_per_step=us / 1e3 / steps,
-                                 calls_per_step=c / steps)
-                            for us, k, c in rows[:10]])
-    log(f"  decode step (B={B}): host enqueue {res['enqueue_ms']:.2f} ms, "
-        f"synced wall {res['step_wall_ms']:.2f} ms, device busy "
-        f"{res['device_busy_ms']:.2f} ms ({100 * res['device_busy_share']:.1f}%"
-        f" of the profiled wall)")
-    for name, a in attn.items():
-        if a["launches_per_step"]:
-            log(f"  {name} (split + combine): {a['ms_per_step']:.3f} ms/step "
-                f"in {a['launches_per_step']:.1f} launches")
-    for k in res["top_kernels"]:
-        log(f"    {k['ms_per_step']:8.3f} ms/step {k['calls_per_step']:6.1f} "
-            f"calls  {k['name']}")
+            for name, tag in KERNEL_TAGS.items()}
+    return dict(enqueue_ms=1e3 * sum(enq) / steps,
+                step_wall_ms=1e3 * sum(wall) / steps,
+                profiled_step_ms=1e3 * prof_wall / steps,
+                device_busy_ms=1e3 * busy_s / steps,
+                device_busy_share=busy_s / prof_wall,
+                kernels_per_step=sum(r[2] for r in rows) / steps,
+                attention_kernels=attn,
+                top_kernels=[dict(name=k[:90], ms_per_step=us / 1e3 / steps,
+                                  calls_per_step=c / steps)
+                             for us, k, c in rows[:10]])
+
+
+KERNEL_TAGS = {"paged_wave_attention": "PagedSrc",
+               "wave_attention_merge": "MergeSrc"}
+
+
+def eager_step(graph, act):
+    """``graph``'s decode step run eagerly on its static buffers, as its
+    warm-up runs it (to measure or check a replay against)."""
+    import torch
+    graph.active.copy_(torch.from_numpy(act).pin_memory(), non_blocking=True)
+    logits, _ = graph.fn(graph.state, graph.tokens, graph.active)
+    ids = graph.sample(logits)
+    graph.tokens.copy_(ids)
+    return logits, ids
+
+
+def fused_activation_graph(graph, act):
+    """A second capture of ``graph``'s step, on its state and buffers, with
+    torch's fused gelu and silu (one kernel each, rounded once) in place of
+    the port's op-for-op ones: the MLP before the bf16 repair, to measure
+    what the repair costs a replay. Warmed up and captured here (one step
+    of the state)."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    from repro_torch.serving.graphs import DecodeGraph
+    alt = DecodeGraph(graph.fn, graph.sample, graph.state, graph.tokens)
+    real = L.gelu_tanh, L.silu
+    L.gelu_tanh, L.silu = (lambda x: F.gelu(x, approximate="tanh")), F.silu
+    try:
+        alt.step(act)
+    finally:
+        L.gelu_tanh, L.silu = real
+    return alt
+
+
+def decode_breakdown(engine, steps=8, upcast_too=False):
+    """Where one decode step's time goes, on the state the serve run left
+    (both slots active), in one call: the serve's captured step run eagerly
+    on its static buffers, then replayed (``DecodeGraph``), then a replay of
+    the same step captured with torch's fused activations (the MLP before
+    the bf16 repair); with ``upcast_too``, first the full runtime's old
+    formulation (the cache upcast to f32 for both products) eagerly. For
+    each: host time to enqueue a step, synced wall, device busy and its
+    share, kernels per step, top kernels (``step_breakdown``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import attention
+    graph = engine.last_graph
+    act = np.ones(graph.tokens.shape[0], bool)
+    res = {}
+    with torch.inference_mode():
+        if upcast_too:
+            real = attention._f32_product
+            attention._f32_product = lambda a, b: torch.matmul(a.float(),
+                                                               b.float())
+            try:
+                res["eager_upcast"] = step_breakdown(
+                    lambda: eager_step(graph, act), steps)
+            finally:
+                attention._f32_product = real
+        res["eager"] = step_breakdown(lambda: eager_step(graph, act), steps)
+        res["replay"] = step_breakdown(lambda: graph.step(act), steps)
+        alt = fused_activation_graph(graph, act)
+        res["replay_fused_act"] = step_breakdown(lambda: alt.step(act),
+                                                 steps)
+        del alt
+    for name, r in res.items():
+        log(f"  {name:16s} step (B={len(act)}): host enqueue "
+            f"{r['enqueue_ms']:.2f} ms, synced wall {r['step_wall_ms']:.2f} "
+            f"ms, device busy {r['device_busy_ms']:.2f} ms "
+            f"({100 * r['device_busy_share']:.1f}% of the profiled wall), "
+            f"{r['kernels_per_step']:.0f} kernels")
+        for kname, a in r["attention_kernels"].items():
+            if a["launches_per_step"]:
+                log(f"    {kname} (split + combine): {a['ms_per_step']:.3f} "
+                    f"ms/step in {a['launches_per_step']:.1f} launches")
+        for k in r["top_kernels"][:6]:
+            log(f"    {k['ms_per_step']:8.3f} ms/step "
+                f"{k['calls_per_step']:6.1f} calls  {k['name']}")
     return res
+
+
+def state_layout(state):
+    """[layer, field, shape, stride, contiguous, device, storage offset] of
+    every tensor of a serve state."""
+    return [[i, f, list(t.shape), list(t.stride()), t.is_contiguous(),
+             str(t.device), t.storage_offset()]
+            for i, st in enumerate(state.kv) for f, t in zip(st._fields, st)]
+
+
+def compiled_step_check(params, cfg, prompt_lens=(8192, 6000), steps=8,
+                        seed=11, device="cuda"):
+    """Phase 10: full-width decode states from blocking prefills of
+    ``prompt_lens``; for each of "fused", "pallas", "jnp" and the full
+    runtime, the engine's captured step (``DecodeGraph``) from one state
+    copy: ``steps`` eager steps, the hot fields and tokens restored, one
+    capture, restored again, ``steps`` replays. Replayed logits must equal
+    the eager step's bits and the ids must be equal; one profiled replay
+    must launch 2 x layers attention kernels (split + combine) for the
+    impls that have one."""
+    import numpy as np
+    import torch
+    from repro_torch.core.zones import plan_zones
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import HOT_FIELDS
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.graphs import DecodeGraph
+    rng = np.random.default_rng(seed)
+    S = max(prompt_lens)
+    toks = np.zeros((len(prompt_lens), S), np.int64)
+    for b, n in enumerate(prompt_lens):
+        toks[b, :n] = rng.integers(0, cfg.vocab, n)
+    B = len(prompt_lens)
+    act = np.ones(B, bool)
+    out = {}
+    for runtime, impls in (("retro", ("fused", "pallas", "jnp")),
+                           ("full", ("jnp",))):
+        eng = ServeEngine(cfg, params, runtime=runtime, device=device)
+        plan = plan_zones(S, cfg.retro, eng.gen_headroom)
+        with torch.inference_mode():
+            _, state = M.apply_prefill(
+                params, cfg, {"tokens": torch.from_numpy(toks).to(device)},
+                runtime=runtime, plan=plan, gen_headroom=eng.gen_headroom,
+                lengths=torch.tensor(prompt_lens, dtype=torch.int32,
+                                     device=device),
+                cache_len=S + eng.gen_headroom)
+        hot = HOT_FIELDS if runtime == "retro" else ("k", "v", "length")
+        saved = [{f: getattr(st, f).clone() for f in hot} for st in state.kv]
+        first = torch.tensor([1, 2], dtype=torch.int32, device=device)[:B]
+
+        def restore(graph):
+            for st, sv in zip(state.kv, saved):
+                for f, t in sv.items():
+                    getattr(st, f).copy_(t)
+            graph.tokens.copy_(first)
+
+        for impl in impls:
+            eng.attn_impl = impl
+            graph = DecodeGraph(eng._decode_fn(plan), eng._sample_dev,
+                                state, first.clone(),
+                                key=(B, S, impl, runtime))
+            with torch.inference_mode():
+                restore(graph)
+                eager = [tuple(t.clone() for t in eager_step(graph, act))
+                         for _ in range(steps)]
+                restore(graph)
+                graph.step(act)                     # warm-up + capture
+                restore(graph)
+                replay = [tuple(t.clone() for t in graph.step(act))
+                          for _ in range(steps)]
+                torch.cuda.synchronize()
+                rows, _ = _profile_rows(lambda: graph.step(act), 1)
+            same = all(torch.equal(a[0], b[0]) for a, b in zip(eager, replay))
+            ids = all(torch.equal(a[1], b[1]) for a, b in zip(eager, replay))
+            finite = all(torch.isfinite(a[0]).all() for a in replay)
+            name = "full" if runtime == "full" else impl
+            tag = KERNEL_TAGS.get(IMPL_KERNEL.get(impl)) \
+                if runtime == "retro" else None
+            n_attn = sum(c for _, k, c in rows if tag and tag in k)
+            want_attn = 2 * cfg.n_layers if tag else 0
+            out[name] = dict(bit_identical=same, ids_equal=ids,
+                             captures=graph.captures, replays=graph.replays,
+                             kernels_per_replay=sum(r[2] for r in rows),
+                             attention_launches_per_replay=n_attn,
+                             attention_kernel=IMPL_KERNEL.get(impl)
+                             if runtime == "retro" else None)
+            log(f"  {name}: {steps} eager vs {steps} replayed steps from one "
+                f"state: logits bit-identical {same}, ids equal {ids}; one "
+                f"profiled replay: {out[name]['kernels_per_replay']} kernels, "
+                f"{n_attn} attention launches (want {want_attn})")
+            if not (same and ids and finite and n_attn == want_attn
+                    and graph.captures == 1):
+                raise AssertionError(f"compiled step {name}: {out[name]}")
+            del graph
+        del state, saved, eng
+        torch.cuda.empty_cache()
+    return out
 
 
 def _leaves(tree):
@@ -1318,24 +1594,19 @@ def sparse_prefill_request(params, cfg, n=8192, blocks=16, new_tokens=8,
     which must correlate above 0.9 (tests/test_sparse_prefill.py:75)."""
     import numpy as np
     import torch
+    from repro_torch.kernels.wave_attention import ops
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Request, ServeEngine
     scfg = cfg.replace(sparse_prefill_blocks=blocks)
     prompt = np.random.default_rng(seed).integers(0, cfg.vocab, n) \
         .astype(np.int32)
     engine = ServeEngine(scfg, params, device=device, attn_impl="fused")
-    _sync(device)
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     req = Request(prompt, new_tokens)
-    t0 = time.perf_counter()
-    m = engine.serve([req], batch_size=1)
-    _sync(device)
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2**30 \
-        if device == "cuda" else 0.0
-    counts = {k: fn.launches for k, fn in launch_counters().items()}
+    tap = LaunchTap(ops)
+    m, wall, counts = tapped_serve(engine, [req], 1, tap)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     want = {k: 0 for k in counts}
     want["paged_wave_attention"] = cfg.n_layers * m.steps
     if counts != want or len(req.out_tokens) != new_tokens:
@@ -1366,10 +1637,11 @@ def sparse_prefill_request(params, cfg, n=8192, blocks=16, new_tokens=8,
 # ---------------------------------------------------------------------------
 
 def full_attention_check(engine, max_ctx, device="cuda"):
-    """One decode step from the state the full-runtime serve left, with
-    every layer's ``full_attention_decode`` held, on its own inputs, against
-    an f32 softmax over the cache prefix of each row (no bf16 rounding of
-    p), within 2e-3 (1 + |ref|) elementwise."""
+    """One decode step from the state the full-runtime serve left, as the
+    engine's captured step runs it (the whole cache, each row's tail
+    masked), with every layer's ``full_attention_decode`` held, on its own
+    inputs, against an f32 softmax over each row's valid prefix (no bf16
+    rounding of p), within 2e-3 (1 + |ref|) elementwise."""
     import math
     import torch
     from repro_torch.core import attention
@@ -1382,13 +1654,16 @@ def full_attention_check(engine, max_ctx, device="cuda"):
     nbytes = []
 
     def check(q, cache, *, window=None, softcap=None, span=None):
-        out = real(q, cache, window=window, softcap=softcap, span=span)
-        # the least bytes: the bf16 K/V prefix read once, q, the lengths
-        # and the output
-        nbytes.append(2 * _nbytes(cache.k[:, :, :span]) + _nbytes(
-            q, cache.length, out))
+        if span is not None:
+            raise AssertionError("the decode step read a cache prefix")
+        out = real(q, cache, window=window, softcap=softcap)
         B, Hq, hd = q.shape
         Hkv = cache.k.shape[1]
+        # the least bytes: each row's valid K/V read once, q, the lengths
+        # and the output
+        nbytes.append(2 * int(cache.length.sum()) * Hkv * hd
+                      * cache.k.element_size()
+                      + _nbytes(q, cache.length, out))
         qg = q.reshape(B, Hkv, Hq // Hkv, hd).float()
         for b in range(B):
             n = int(cache.length[b])
@@ -1518,8 +1793,11 @@ def main(argv=None):
         main_path[kind] = res
         results["paged_wave_attention"].append(res)
     del taken
-    log("  decode-step breakdown (after the run, both slots decoding)")
-    breakdown = decode_breakdown(engine, max(prompt_lens))
+    log("  decode-step breakdown (after the run, both slots decoding): the "
+        "captured step eagerly, then replayed")
+    breakdown = decode_breakdown(engine)
+    layout3 = state_layout(engine.last_state)
+    engine3 = engine                    # stepped again after phase 7
     del engine
     torch.cuda.empty_cache()
 
@@ -1554,7 +1832,7 @@ def main(argv=None):
     del taken5, idx, ks, vs
     impls = compare_impls(engine5, g_layer, max(prompt_lens5))
     log("  decode-step breakdown (after the run, both slots decoding)")
-    breakdown5 = decode_breakdown(engine5, max(prompt_lens5))
+    breakdown5 = decode_breakdown(engine5)
     del engine5
     torch.cuda.empty_cache()
 
@@ -1591,9 +1869,41 @@ def main(argv=None):
         admission="blocking", want_flush=False)
     del taken7
     log("  decode-step breakdown (after the run, both slots decoding)")
-    breakdown7 = decode_breakdown(engine7, max(prompt_lens5))
+    breakdown7 = decode_breakdown(engine7)
+    # why an eager step's host time differs between phases. Layout: every
+    # tensor of the state after blocking admission against phase 3's after
+    # chunked admission; machine state: phase 3's state stepped again, now,
+    # in this process
+    layout7 = state_layout(engine7.last_state)
+    layout_diff = [(a, b) for a, b in zip(layout3, layout7) if a != b]
+    log(f"  host time: state layout after blocking vs chunked admission: "
+        f"{len(layout7)} tensors, {len(layout_diff)} differ "
+        f"{layout_diff[:4] or ''}")
+    log("  host time: phase 3's state, stepped again after phase 7")
+    breakdown3_again = decode_breakdown(engine3)
+    # and again with every object alive now moved out of the cyclic
+    # collector's view: what the collector's passes over a grown heap cost
+    import gc
+    n_objects = len(gc.get_objects())
+    gc.freeze()
+    try:
+        log("  host time: the same, the collector's heap frozen (gc.freeze)")
+        breakdown3_frozen = decode_breakdown(engine3)
+    finally:
+        gc.unfreeze()
+    eager_ms = {name: b["eager"]["enqueue_ms"] for name, b in (
+        ("phase3", breakdown), ("phase7", breakdown7),
+        ("phase3_again", breakdown3_again),
+        ("phase3_frozen", breakdown3_frozen))}
+    host_check = dict(layout_tensors=len(layout7), layout_differs=layout_diff,
+                      python_objects=n_objects, eager_host_ms=eager_ms)
+    log(f"  host time: eager ms per step: phase 3 {eager_ms['phase3']:.2f}, "
+        f"phase 7 {eager_ms['phase7']:.2f}, phase 3's state again "
+        f"{eager_ms['phase3_again']:.2f}, with the heap frozen "
+        f"{eager_ms['phase3_frozen']:.2f}; {n_objects} Python objects "
+        f"tracked")
     params7 = engine7.params
-    del engine7
+    del engine7, engine3
     torch.cuda.empty_cache()
     build_check = build_bit_check(params7, CONFIG)
     blk_vs_chk = blocking_vs_chunked_logits(params7, CONFIG)
@@ -1612,8 +1922,9 @@ def main(argv=None):
         if admission == "chunked":
             full_check = full_attention_check(engine8, max(prompt_lens5))
             log("  decode-step breakdown (after the run, both slots "
-                "decoding)")
-            breakdown8 = decode_breakdown(engine8, max(prompt_lens5))
+                "decoding): the old formulation (cache upcast) eagerly, "
+                "the new one eagerly and replayed")
+            breakdown8 = decode_breakdown(engine8, upcast_too=True)
         del engine8
         torch.cuda.empty_cache()
     for name, r in (("retro fused, phase 3", serve),
@@ -1643,8 +1954,18 @@ def main(argv=None):
         f"({minitron_launch['bound_by']})")
     results["paged_wave_attention"].append(minitron_launch)
     log("  decode-step breakdown (after the run, both slots decoding)")
-    breakdown9 = decode_breakdown(engine9, max(prompt_lens9))
+    breakdown9 = decode_breakdown(engine9)
     del taken9, args, engine9
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: the compiled decode stage, eager vs replay ---------------
+    log("phase 10: gemma2-2b at full width, the captured decode step against "
+        "the eager step (fused, pallas, jnp, full)")
+    from repro_torch.models import model as M
+    params10 = M.init_params(CONFIG, torch.Generator(device="cuda")
+                             .manual_seed(10), "cuda")
+    compiled = compiled_step_check(params10, CONFIG)
+    del params10
     torch.cuda.empty_cache()
 
     # the kernel line: launches on the path that runs the kernel (the serve
@@ -1692,7 +2013,10 @@ def main(argv=None):
             offload_vs_direct=vs_direct, decode_breakdown_offload=breakdown6,
             reduced_offload_card_vs_cpu=red_offload, serve_blocking=serve7,
             decode_breakdown_blocking=breakdown7,
-            decode_breakdown_minitron=breakdown9,
+            decode_breakdown_minitron=breakdown9, host_time_check=host_check,
+            decode_breakdown_phase3_after_phase7=breakdown3_again,
+            decode_breakdown_phase3_gc_frozen=breakdown3_frozen,
+            compiled_step=compiled,
             build_bit_check=build_check, blocking_vs_chunked=blk_vs_chk,
             sparse_prefill=sparse, serve_full=serve8,
             decode_breakdown_full=breakdown8, full_attention_check=full_check,

@@ -406,7 +406,8 @@ def init_dense_cache(B, H, S_max, hd, dtype=torch.bfloat16,
 
 def dense_cache_append(cache: DenseCache, k_new, v_new,
                        active: Optional[torch.Tensor] = None) -> DenseCache:
-    """Append (B, H, hd) K/V at each row's own cursor, in place.
+    """Append (B, H, hd) K/V at each row's own cursor, in place (the
+    ``length`` counter too).
 
     ``active``: optional (B,) bool; inactive rows (free slots) are left
     untouched. A row at capacity drops the append and keeps its cursor, so
@@ -424,7 +425,24 @@ def dense_cache_append(cache: DenseCache, k_new, v_new,
     for buf, new in ((cache.k, k_new), (cache.v, v_new)):
         buf[ar, :, idx] = torch.where(write[:, None, None],
                                       new.to(buf.dtype), buf[ar, :, idx])
-    return DenseCache(cache.k, cache.v, cache.length + write.to(torch.int32))
+    cache.length.add_(write.to(torch.int32))
+    return cache
+
+
+def _f32_product(a, b):
+    """Batched ``a @ b`` over the same leading dims with f32 accumulation
+    and an f32 output, the reference's ``preferred_element_type=f32``. On
+    the card, 16-bit operands are read as they are (``torch.bmm(...,
+    out_dtype=float32)``, no f32 copy; ``b`` may be a strided view of a
+    cache). The CPU, which has no kernel for that product, and f32 operands
+    upcast to f32 (exact: products of bf16 or f16 values are exact in
+    f32)."""
+    if a.device.type != "cuda" or a.dtype == torch.float32:
+        return torch.matmul(a.float(), b.float())
+    lead = a.shape[:-2]
+    out = torch.bmm(a.reshape((-1,) + a.shape[-2:]),
+                    b.reshape((-1,) + b.shape[-2:]), out_dtype=torch.float32)
+    return out.reshape(lead + out.shape[-2:])
 
 
 def full_attention_decode(q, cache: DenseCache, *, window=None, softcap=None,
@@ -434,25 +452,26 @@ def full_attention_decode(q, cache: DenseCache, *, window=None, softcap=None,
 
     The reference's cast points: q is cast to the cache dtype, scores and
     P @ V accumulate in f32, and p is rounded to the cache dtype before the
-    P @ V product; the output is cast to q's dtype. A bf16 matmul in torch
-    returns bf16, so the storage-dtype operands are upcast to f32 (exact).
-    Only the first ``span`` slots are read and upcast (default: the whole
-    cache); callers pass the longest row's length, past which every row's
-    positions are masked anyway."""
+    P @ V product; the output is cast to q's dtype. On the card a 16-bit
+    cache is read as it is, both products giving f32 (``_f32_product``);
+    the CPU, which has no kernel for that product, and an f32 cache upcast
+    the operands instead (exact). Only the first ``span`` slots are read
+    (default: the whole cache, as the decode step reads it); past the
+    longest row's length every position is masked anyway."""
     B, Hq, hd = q.shape
     Hkv = cache.k.shape[1]
     G = Hq // Hkv
     T = cache.k.shape[2] if span is None else min(span, cache.k.shape[2])
     scale = 1.0 / math.sqrt(hd)
     dt = cache.k.dtype
-    qg = q.reshape(B, Hkv, G, hd).to(dt).float()
-    kf, vf = cache.k[:, :, :T].float(), cache.v[:, :, :T].float()
-    s = soft_cap(torch.einsum("bhgd,bhtd->bhgt", qg, kf) * scale, softcap)
+    k, v = cache.k[:, :, :T], cache.v[:, :, :T]
+    qg = q.reshape(B, Hkv, G, hd).to(dt)
+    s = soft_cap(_f32_product(qg, k.transpose(2, 3)) * scale, softcap)
     pos = torch.arange(T, device=q.device)
     ok = pos[None, :] < cache.length[:, None]                    # (B, T)
     if window is not None:
         ok = ok & (pos[None, :] > (cache.length - 1)[:, None] - window)
     s = torch.where(ok[:, None, None, :], s, NEG)
-    p = torch.softmax(s, dim=-1).to(dt).float()
-    out = torch.einsum("bhgt,bhtd->bhgd", p, vf)
+    p = torch.softmax(s, dim=-1).to(dt)
+    out = _f32_product(p, v)
     return out.reshape(B, Hq, hd).to(q.dtype)

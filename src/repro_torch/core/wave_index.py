@@ -9,8 +9,11 @@ Sequence bookkeeping (``length``, ``local_len``, ``n_clusters``) is per row,
 so one state holds ragged requests at different positions.
 
 In place: where the JAX code returns a new state from a donated buffer
-(``append_token``, the cluster writes, the stage scatters), this port
-writes into the existing tensors and returns the (re-wrapped) state.
+(``append_token``, the cluster writes, the stage scatters, the decode-time
+flush), this port writes into the existing tensors, the per-row counters
+included, and returns the state. So a decode state's tensors keep their
+addresses from step to step, which a captured CUDA graph needs
+(``serving/graphs.py``).
 """
 from __future__ import annotations
 
@@ -145,7 +148,8 @@ def _write_clusters(state: WaveState, res: ClusterResult, offset,
             new = torch.where(sel, new, dst[bidx, idx])
         dst[bidx, idx] = new
     step = k_new if rows is None else rows.to(torch.int32) * k_new
-    return state._replace(n_clusters=state.n_clusters + step)
+    state.n_clusters.add_(step)
+    return state
 
 
 def prefill_build(k, v, retro: RetroConfig, M: int, dtype=None,
@@ -370,8 +374,8 @@ def prefill_finalize(cp: ChunkedPrefill, retro: RetroConfig,
 def append_token(state: WaveState, k_new, v_new,
                  active: Optional[torch.Tensor] = None) -> WaveState:
     """Append one generated token's (B, H, hd) K/V at each row's
-    ``local_len`` cursor, in place. ``active``: optional (B,) bool — inactive
-    rows keep their bits and counters."""
+    ``local_len`` cursor, in place (counters too). ``active``: optional
+    (B,) bool — inactive rows keep their bits and counters."""
     B = k_new.shape[0]
     lbuf = state.local_k.shape[2]
     dev = k_new.device
@@ -384,8 +388,9 @@ def append_token(state: WaveState, k_new, v_new,
             new = torch.where(active[:, None, None], new, buf[ar, :, idx])
         buf[ar, :, idx] = new
     step = 1 if active is None else active.to(torch.int32)
-    return state._replace(local_len=state.local_len + step,
-                          length=state.length + step)
+    state.local_len.add_(step)
+    state.length.add_(step)
+    return state
 
 
 def flush_segment(state: WaveState, retro: RetroConfig,
@@ -418,9 +423,8 @@ def flush_segment_offload(state: WaveState, retro: RetroConfig,
     state = _write_clusters(state, res, state.n_clusters, rows)
     _roll_rows(state.local_k, useg, rows)
     _roll_rows(state.local_v, useg, rows)
-    return state._replace(
-        local_len=torch.where(rows, state.local_len - useg,
-                              state.local_len)), res
+    state.local_len.sub_(rows.to(torch.int32) * useg)
+    return state, res
 
 
 def maybe_flush(state: WaveState, retro: RetroConfig) -> WaveState:

@@ -11,7 +11,6 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 
 def rms_norm(x, gamma, eps: float = 1e-6):
@@ -112,7 +111,32 @@ def attention_qkv(p, x, n_heads: int, n_kv: int, head_dim: int, positions,
     return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
 
 
+def rounded(c: float, dtype: torch.dtype) -> float:
+    """``c`` rounded to ``dtype``: the reference's weakly typed Python
+    constants take the array's dtype before the op. (A tensor op with a
+    Python scalar computes with the unrounded scalar.)"""
+    return float(torch.tensor(c, dtype=torch.float64).to(dtype))
+
+
+def silu(x):
+    """``jax.nn.silu`` op for op in x's dtype, as the reference lowers it:
+    x * 1 / (1 + exp(-x)), each op rounded (torch's fused silu and sigmoid
+    round once)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def gelu_tanh(x):
+    """``jax.nn.gelu(approximate=True)`` op for op in x's dtype, with its
+    constants rounded to that dtype, as the reference computes it (torch's
+    fused gelu computes in f32 and rounds once, which in bf16 differs in
+    about a third of the elements)."""
+    c0, c1 = rounded(0.044715, x.dtype), rounded(math.sqrt(2 / math.pi),
+                                                  x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c1 * (x + c0 * (x * x * x))))
+    return x * cdf
+
+
 def mlp_apply(p, x, act: str = "silu"):
     g = x @ p["w_gate"]
-    g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+    g = silu(g) if act == "silu" else gelu_tanh(g)
     return (g * (x @ p["w_up"])) @ p["w_down"]

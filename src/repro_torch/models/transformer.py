@@ -91,7 +91,8 @@ def init_transformer(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
-    return params["embed"][tokens] * math.sqrt(cfg.d_model)
+    x = params["embed"][tokens]
+    return x * L.rounded(math.sqrt(cfg.d_model), x.dtype)
 
 
 def unembed(params, cfg: ModelConfig, x):
@@ -308,13 +309,14 @@ def decode_step(params, cfg: ModelConfig, state: ServeState, token, *,
     "fused" or "pallas"; None defers to ``cfg.retro.attn_impl``.
     ``inline_flush=True`` runs the staging-buffer flush inside the step
     (``maybe_flush``); the serve engine flushes between steps instead.
-    The full runtime reads the longest row's length back once per step, so
-    its attention reads only the cache prefix any row can use."""
+    The full runtime's attention reads the whole dense cache, as the
+    reference's compiled step does (no length readback, so the step can be
+    captured). Every state update is in place, so the returned state holds
+    the argument's tensors."""
     a, retro = cfg.attn, cfg.retro
     impl = wa.resolve_attn_impl(attn_impl or retro.attn_impl)
     x = embed_tokens(params, cfg, token)                       # (B, D)
     B = x.shape[0]
-    span = int(state.kv[0].length.max()) + 1 if runtime != "retro" else None
     kv = []
     for lp, lstate, window in zip(params["layers"], state.kv, params["window"]):
         pos = lstate.length                                    # (B,)
@@ -333,7 +335,7 @@ def decode_step(params, cfg: ModelConfig, state: ServeState, token, *,
         else:
             lstate = wa.dense_cache_append(lstate, k, v, active=active)
             o = wa.full_attention_decode(q, lstate, window=window,
-                                         softcap=a.softcap, span=span)
+                                         softcap=a.softcap)
         x = x + o.reshape(B, -1) @ lp["attn"]["wo"]
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + _ffn(lp, h, cfg)

@@ -13,9 +13,12 @@ finalized single-slot state is grafted into the batch state. Blocking
 admission prefills a free slot's whole prompt (right-padded to a multiple
 of ``prefill_bucket``) in one pass before the next decode step; configs
 with block-sparse prefill always admit this way. The full runtime reads the
-longest row's length back once per decode step (see
-``transformer.decode_step``). First tokens of all requests admitted in the
-same iteration are sampled on device and read back with one coalesced copy.
+whole dense cache each step, as the reference's compiled step does. On the
+card each direct-store decode step replays one captured CUDA graph per
+geometry (``serving/graphs.py``, the counterpart of the reference's
+per-geometry ``jax.jit``); the CPU runs the same step eagerly. First tokens
+of all requests admitted in the same iteration are sampled on device and
+read back with one coalesced copy.
 Decode sampling stays on device: step t's ids are copied to pinned host
 memory behind an event and harvested after step t+1 has been enqueued, so
 completion is detected one step late (the speculative extra token of a
@@ -27,7 +30,7 @@ and decode attention reads a per-layer device block cache through cache-slot
 ids: hits from the cache, misses fetched from the host into a per-step
 staging tail, cache admissions deferred off the hot path. The decode loop
 then reads the retrieved ids back once per layer (the paper's CPU control
-plane). See ``_OffloadPlane``.
+plane). See ``_OffloadPlane``. Offload steps run eagerly.
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ from repro_torch.core.zones import plan_zones
 from repro_torch.models import model as M
 from repro_torch.models.transformer import (HOT_FIELDS, LIVE_FIELDS,
                                             ServeState, torch_dtype)
+from repro_torch.serving.graphs import DecodeGraph
 
 
 @dataclass
@@ -641,10 +645,25 @@ class ServeEngine:
         host transfer."""
         return logits.argmax(dim=-1).to(torch.int32)
 
+    def _decode_fn(self, plan):
+        """The direct-store decode step of one geometry, as ``DecodeGraph``
+        takes it. The step holds no reference to the engine, which holds
+        the graph (``last_graph``): no cycle keeps a dropped engine's state
+        alive."""
+        params, cfg, rt, impl = self.params, self.cfg, self.runtime, \
+            self.attn_impl
+
+        def fn(st, tokens, active):
+            return M.apply_decode(params, cfg, st, tokens, runtime=rt,
+                                  plan=plan, active=active, attn_impl=impl)
+        return fn
+
     @torch.inference_mode()
     def serve(self, requests: List[Request],
               batch_size: int) -> ServeMetrics:
-        """Serve a FIFO queue through ``batch_size`` continuous slots."""
+        """Serve a FIFO queue through ``batch_size`` continuous slots. The
+        decode state and its captured step (``last_graph``) belong to this
+        call: each call captures once, at its geometry."""
         cfg, dev, rt = self.cfg, self.device, self.runtime
         if not requests:
             raise ValueError("no requests")
@@ -676,7 +695,11 @@ class ServeEngine:
         staged = np.zeros(B, np.int64)      # host mirror of local_len
         slot_steps = np.zeros(B, np.int64)  # watchdog: decode steps per slot
         admit_t = np.zeros(B, float)
+        # the step's token buffer: written in place, never rebound
         tokens_dev = torch.zeros((B,), dtype=torch.int32, device=dev)
+        graph = None if plane is not None else DecodeGraph(
+            self._decode_fn(plan), self._sample_dev, state,
+            tokens_dev, key=(B, max_ctx, self.attn_impl, rt))
         prev: Optional[_Readback] = None    # step t's ids (copy in flight)
         prev_snapshot: List[Optional[Request]] = [None] * B
         last_deliver_t: Optional[float] = None
@@ -779,8 +802,8 @@ class ServeEngine:
                                     max(adm.consumed - cfg.retro.sink, 0))
                     if len(req.out_tokens) >= req.max_new_tokens:
                         finish(i, req)
-                tokens_dev = torch.where(to_device(mask, dev),
-                                         to_device(upd, dev), tokens_dev)
+                tokens_dev.copy_(torch.where(to_device(mask, dev),
+                                             to_device(upd, dev), tokens_dev))
             metrics.prefill_s += time.perf_counter() - t0
 
             # ---- one decode step over the whole slot batch -----------------
@@ -791,12 +814,14 @@ class ServeEngine:
                 if plane is not None:
                     logits, state = plane.decode_step(state, tokens_dev,
                                                       active)
+                    new_sampled = self._sample_dev(logits)   # device, no sync
+                    tokens_dev.copy_(new_sampled)
                 else:
-                    logits, state = M.apply_decode(
-                        self.params, cfg, state, tokens_dev, runtime=rt,
-                        plan=plan, active=to_device(active, dev),
-                        attn_impl=self.attn_impl)
-                new_sampled = self._sample_dev(logits)   # device, no sync
+                    # the ids (a replay's static output; the step also
+                    # writes them into tokens_dev) are copied to the host
+                    # on this stream after this step and before the next
+                    # replay overwrites them: stream order keeps it safe
+                    _, new_sampled = graph.step(active, state)
                 cur = _Readback(new_sampled)
                 snapshot = [slots[i] if active[i] else None for i in range(B)]
                 metrics.steps += 1
@@ -834,7 +859,6 @@ class ServeEngine:
                     last_deliver_t, last_deliver = now, delivered
             if cur is not None:
                 prev, prev_snapshot = cur, snapshot
-                tokens_dev = new_sampled
             else:
                 prev, prev_snapshot = None, [None] * B
             metrics.decode_s += time.perf_counter() - t0
@@ -852,6 +876,7 @@ class ServeEngine:
             plane.export_stats(metrics)
         self.last_plane = plane             # inspection hooks (tests, smoke)
         self.last_state = state
+        self.last_graph = graph
         return metrics
 
     def run_wave(self, requests: List[Request]) -> ServeMetrics:
