@@ -26,13 +26,20 @@
    profiles one decode step of that path;
 6. serves full-width gemma2-2b with its cluster stores in host memory
    (``ServeEngine(offload=True, attn_impl="fused")``: the paged kernel reads
-   a device block cache of C + r slots through cache-slot ids), checks its
-   launch count, sizes and counters, holds the kernel against its twin on a
-   captured launch, runs the offload and the direct decode from one admitted
-   state (logits within the bf16 tolerance, see ``offload_vs_direct``),
-   breaks one offload decode step
-   down, and runs reduced gemma2-2b offload under a seeded fault profile on
-   the card and on the CPU (same tokens and counters, logits within 1e-3);
+   a device block cache of C + r slots through cache-slot ids) through the
+   compiled offload stage (``OffloadStage``: one capture, then L + 1 graphs
+   replayed a step with the host control plane between them), checks one
+   capture and a replay for every later step, its launch count, sizes and
+   counters, holds the kernel against its twin on a captured launch, runs
+   the offload (replayed) and the direct decode from one admitted state
+   (logits within the bf16 tolerance, see ``offload_vs_direct``), breaks
+   one offload decode step down eagerly and replayed in one call
+   (``offload_breakdown``: id wait, translate, H2D staging, launch, drain,
+   synced wall, device busy, bytes to the device) and profiles one
+   replayed step (2 x 26 attention launches); then runs phase 10's
+   offload part on its state; then reduced gemma2-2b offload under a
+   seeded fault profile on the card and on the CPU (same tokens and
+   counters, logits within 1e-3);
 7. serves full-width gemma2-2b with blocking admission
    (``ServeEngine(admission="blocking")``: one prefill per request, the
    wave index built by ``prefill_build``) through the paged kernel, checks
@@ -51,11 +58,17 @@
 10. holds the compiled decode stage at gemma2-2b's full width: for
    "fused", "pallas", "jnp" and ``runtime="full"``, eager steps and
    replays of the captured step from one state give the same logits bits
-   and ids, and a profiled replay launches 2 x 26 attention kernels.
+   and ids, and a profiled replay launches 2 x 26 attention kernels; its
+   offload part (run in phase 6, on the state the offload serve left): for
+   offload "fused", "pallas" and "jnp", 8 eager steps and 8 steps of a
+   capturing plane (1 warm-up + 7 replays) from one copied state and one
+   copied host plane give the same logits bits, ids and counters, and a
+   profiled replayed step launches 2 x 26 attention kernels (0 for jnp).
 
-Every direct-store serve run above decodes through ``ServeEngine``'s
-compiled stage: the first step of the run eagerly, the rest as replays of
-one captured CUDA graph (``serving/graphs.py``). A wrapper's launch count
+Every serve run above decodes through ``ServeEngine``'s compiled stages:
+the first step of the run eagerly, the rest as replays of one captured
+CUDA graph (direct store) or of L + 1 captured graphs (offload)
+(``serving/graphs.py``). A wrapper's launch count
 sees the warm-up's launches and the capture's recorded ones, not a
 replay's: the script counts the calls made during capture (``LaunchTap``),
 adds them once per replay, checks one capture per run, and profiles one
@@ -1085,8 +1098,10 @@ def serve_offload(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
                   min_capture_pos=4096):
     """Drive the offload path: ServeEngine(offload=True) with the config's
     cache fraction and policy; every kernel's launch count is set to 0 just
-    before the serve and read just after. Checks launches, requests, sizes
-    and the control plane's counters."""
+    before the serve and read just after (``LaunchTap``: the capture's
+    recorded calls added once per replayed step). Checks one capture of the
+    offload stage and a replay for every later step, launches, requests,
+    sizes and the control plane's counters."""
     import numpy as np
     import torch
     from repro_torch.core import attention
@@ -1108,6 +1123,7 @@ def serve_offload(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
     real_ops = attention.wa_ops
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     reset_launches()                                # count this path only
     attention.wa_ops = cap
     try:
@@ -1117,9 +1133,19 @@ def serve_offload(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
         wall = time.perf_counter() - t0
     finally:
         attention.wa_ops = real_ops
-    counts = {k: fn.launches for k, fn in launch_counters().items()}
-    peak = torch.cuda.max_memory_allocated()
     plane = engine.last_plane
+    stage = plane.stage
+    counts = cap.served({k: fn.launches for k, fn in
+                         launch_counters().items()}, stage)
+    peak = torch.cuda.max_memory_allocated()
+    path = IMPL_KERNEL[attn_impl]
+    cap.finish(path)
+    if (stage.captures, stage.replays) != (1, m.steps - 1) or \
+            len(stage.graphs) != cfg.n_layers + 1:
+        raise AssertionError(f"offload stage: {stage.captures} captures, "
+                             f"{stage.replays} replays for {m.steps} steps")
+    if cap.recorded != {path: cfg.n_layers}:
+        raise AssertionError(f"the capture recorded {cap.recorded}")
 
     want = {k: 0 for k in counts}
     want[IMPL_KERNEL[attn_impl]] = cfg.n_layers * m.steps
@@ -1137,7 +1163,8 @@ def serve_offload(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
         raise AssertionError(f"plane sizes M {plane.M} r {plane.r} C "
                              f"{plane.C}")
     blk = plane.cache_k[0].shape
-    if tuple(blk) != (batch, cfg.n_kv_heads, plane.C + plane.r,
+    # C + r slots and the dead slot that padded writes reach
+    if tuple(blk) != (batch, cfg.n_kv_heads, plane.C + plane.r + 1,
                       cfg.retro.cluster_cap, cfg.head_dim):
         raise AssertionError(f"device block cache {tuple(blk)}")
     last = {r.slot: r for r in reqs}
@@ -1167,8 +1194,11 @@ def serve_offload(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
     res = dict(attn_impl=attn_impl, wall_s=wall, steps=m.steps,
                launches=counts[IMPL_KERNEL[attn_impl]], all_launches=counts,
                m_max=plane.M, r=plane.r, C=plane.C,
+               graph_captures=stage.captures, graph_replays=stage.replays,
+               graphs_per_step=len(stage.graphs),
                host_store_gb=host_bytes / 1e9,
                device_cache_gb=cache_bytes / 1e9, peak_mem_gib=peak / 2**30,
+               held_before_gib=held / 2**30,
                admit_slot_s=plane.timing["admit_s"],
                tokens_out=m.tokens_out, prefill_tps=m.prefill_tps,
                decode_s=m.decode_s, decode_tps=m.decode_tps,
@@ -1184,9 +1214,12 @@ def serve_offload(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
         f"{plane.C}; block cache {tuple(blk)}; host store "
         f"{res['host_store_gb']:.2f} GB packed f32 (both slots), device "
         f"cache {res['device_cache_gb']:.3f} GB, peak device memory "
-        f"{res['peak_mem_gib']:.2f} GiB")
-    log(f"  decode steps {m.steps}, launches {counts} (= {cfg.n_layers} x "
-        f"steps of {IMPL_KERNEL[attn_impl]}); admit_slot s "
+        f"{res['peak_mem_gib']:.2f} GiB ({res['held_before_gib']:.2f} held "
+        f"before the run)")
+    log(f"  decode steps {m.steps} (1 warm-up + {stage.replays} replays of "
+        f"{stage.captures} captured stage, {len(stage.graphs)} graphs a "
+        f"step), launches {counts} (= {cfg.n_layers} x steps of "
+        f"{IMPL_KERNEL[attn_impl]}); admit_slot s "
         f"{['%.2f' % t for t in res['admit_slot_s']]}")
     log(f"  TTFT s {['%.3f' % t for t in res['ttft_s']]}; prefill "
         f"{res['prefill_tps']:.1f} tok/s; decode {res['decode_tps']:.2f} "
@@ -1209,38 +1242,85 @@ def _copy_state(state):
                           for w in state.kv])
 
 
+def _live_copy(state):
+    """A copy of a serve state's device-resident (live) fields, the payload
+    stores left out: what an offload step reads and writes."""
+    from repro_torch.models.transformer import LIVE_FIELDS, ServeState
+    return ServeState(kv=[w._replace(k_store=None, v_store=None,
+                                     pos_store=None,
+                                     **{f: getattr(w, f).clone()
+                                        for f in LIVE_FIELDS})
+                          for w in state.kv])
+
+
+def plane_copy(engine, plane, max_ctx):
+    """A new offload plane of ``engine`` (its current ``attn_impl``, its
+    own stage, not captured) holding a copy of ``plane``'s device block
+    caches and a deep copy of every other field of ``plane`` (wave buffers,
+    transport, queued admissions, counters, in one copy, so what they share
+    stays shared); the host stores, which a decode step only reads, and the
+    config are shared with ``plane``."""
+    import copy
+    from repro_torch.serving.engine import _OffloadPlane
+    new = _OffloadPlane(engine, plane.B, max_ctx)
+    memo = {id(b.kv_host): b.kv_host for layer in plane.bufs
+            for row in layer if row is not None for b in row}
+    memo[id(plane.cfg)] = plane.cfg
+    own = ("stage", "cache_k", "cache_v", "cache_p")
+    for name, value in vars(plane).items():
+        if name not in own:
+            setattr(new, name, copy.deepcopy(value, memo))
+    for name in own[1:]:
+        for t, u in zip(getattr(new, name), getattr(plane, name)):
+            t.copy_(u)
+    return new
+
+
+def plane_counters(plane):
+    """Every wave-buffer counter of a plane, its degraded and dropped
+    counts, and its bytes to the device."""
+    from repro_torch.serving.engine import ServeMetrics
+    m = ServeMetrics()
+    plane.export_stats(m)
+    return dict(cache=dict(vars(m.cache)), degraded=m.degraded_steps,
+                dropped=m.dropped_cluster_steps,
+                h2d_bytes=plane.timing["h2d_bytes"])
+
+
 def offload_vs_direct(engine, max_ctx, steps=4):
-    """From copies of the state an offload serve left (the stores on the
-    device are the admitted ones: no flush ran), decode ``steps`` steps
-    through the direct ``apply_decode`` and through the serve's offload
-    plane. The payloads are the same bits, but the offload attend always
-    carries the retrieval cover, as the reference does: r gated entries
-    that add exact zeros yet lengthen the estimation fold, which changes
-    the f32 rounding of the attention, and a changed rounding of the bf16
-    residual stream is one bf16 ulp that later layers carry to the logits.
-    So the logits must agree within the reference kernel test's bf16
-    tolerance, |offload - direct| <= 3e-2 (1 + |direct|) elementwise
-    (tests/test_kernels.py:40). Returns the result and the offload copy of
-    the state."""
+    """From the state an offload serve left (the stores on the device are
+    the admitted ones: no flush ran), decode ``steps`` steps through the
+    direct ``apply_decode`` on a copy and through the serve's offload plane,
+    replaying its captured stage, on the state itself. The payloads are the
+    same bits, but the offload attend always carries the retrieval cover,
+    as the reference does: r gated entries that add exact zeros yet
+    lengthen the estimation fold, which changes the f32 rounding of the
+    attention, and a changed rounding of the bf16 residual stream is one
+    bf16 ulp that later layers carry to the logits. So the logits must
+    agree within the reference kernel test's bf16 tolerance, |offload -
+    direct| <= 3e-2 (1 + |direct|) elementwise (tests/test_kernels.py:40).
+    Returns the result and the served state."""
     import numpy as np
     import torch
     from repro_torch.core.zones import plan_zones
     from repro_torch.models import model as M
     cfg, plane = engine.cfg, engine.last_plane
     plan = plan_zones(max_ctx, cfg.retro, engine.gen_headroom)
-    direct, off = _copy_state(engine.last_state), \
-        _copy_state(engine.last_state)
+    off = engine.last_state
+    direct = _copy_state(off)
     B, dev = plane.B, engine.device
     active = np.ones(B, bool)
     act = torch.ones((B,), dtype=torch.bool, device=dev)
     tok = torch.zeros((B,), dtype=torch.int32, device=dev)
+    tokens = plane.stage.tokens              # the captured token buffer
     worst, excess, same = 0.0, -1.0, True
     with torch.inference_mode():
         for _ in range(steps):
+            tokens.copy_(tok)
             a, direct = M.apply_decode(engine.params, cfg, direct, tok,
                                        plan=plan, active=act,
                                        attn_impl=engine.attn_impl)
-            b, off = plane.decode_step(off, tok, active)
+            b, off = plane.decode_step(off, tokens, active)
             if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
                 raise AssertionError("offload/direct logits not finite")
             d = (a - b).abs()
@@ -1259,74 +1339,185 @@ def offload_vs_direct(engine, max_ctx, steps=4):
     return res, off
 
 
-def offload_breakdown(engine, state, steps=8):
-    """Where one offload decode step's time goes, both slots decoding: the
-    step's host time until ``decode_step`` returns, split into the per-layer
-    id-sync waits, the translate, the admission drain and the rest (host
-    enqueue of device work and glue); host->device bytes per step; the
-    synced wall; device kernel time by name from ``torch.profiler``."""
+OFFLOAD_TIMES = (("id_wait_ms", "sync_s"), ("translate_ms", "translate_s"),
+                 ("h2d_staging_ms", "stage_s"), ("launch_ms", "launch_s"),
+                 ("drain_ms", "drain_s"))
+
+
+def offload_step_stats(plane, state, tokens, steps=8):
+    """Where one offload decode step's time goes (both slots decoding):
+    host time until ``decode_step`` returns, split by ``plane.timing`` into
+    the id waits, the translate, the staging of the pieces' inputs (pinned
+    writes and copies to the device), the launch of the pieces (replays, or
+    the eager enqueue) and the drain, the rest being glue; the synced wall;
+    bytes to the device; device kernel time by name from ``torch.profiler``
+    (busy share over the profiled wall)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
-    plane = engine.last_plane
-    B = plane.B
-    tok = torch.zeros((B,), dtype=torch.int32, device=engine.device)
-    active = np.ones(B, bool)
+    active = np.ones(plane.B, bool)
     tm = plane.timing
-    keys = ("sync_s", "translate_s", "drain_s", "h2d_bytes")
-
-    with torch.inference_mode():
-        for _ in range(2):
-            _, state = plane.decode_step(state, tok, active)
+    keys = [k for _, k in OFFLOAD_TIMES] + ["h2d_bytes"]
+    for _ in range(2):
+        plane.decode_step(state, tokens, active)
+    torch.cuda.synchronize()
+    before = {k: tm[k] for k in keys}
+    host, wall = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        plane.decode_step(state, tokens, active)
+        host.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
-        before = {k: tm[k] for k in keys}
-        host, wall = [], []
+        wall.append(time.perf_counter() - t0)
+    per = {k: (tm[k] - before[k]) / steps for k in keys}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
         for _ in range(steps):
-            t0 = time.perf_counter()
-            _, state = plane.decode_step(state, tok, active)
-            host.append(time.perf_counter() - t0)
-            torch.cuda.synchronize()
-            wall.append(time.perf_counter() - t0)
-        per = {k: (tm[k] - before[k]) / steps for k in keys}
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                _, state = plane.decode_step(state, tok, active)
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
+            plane.decode_step(state, tokens, active)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
     rows = device_kernels(prof)
     busy_s = sum(r[0] for r in rows) / 1e6
     host_ms = 1e3 * sum(host) / steps
-    res = dict(step_host_ms=host_ms, step_wall_ms=1e3 * sum(wall) / steps,
-               id_sync_ms=1e3 * per["sync_s"],
-               translate_ms=1e3 * per["translate_s"],
-               drain_ms=1e3 * per["drain_s"],
-               enqueue_ms=host_ms - 1e3 * (per["sync_s"] + per["translate_s"]
-                                           + per["drain_s"]),
-               h2d_mb_per_step=per["h2d_bytes"] / 1e6,
-               profiled_step_ms=1e3 * prof_wall / steps,
-               device_busy_ms=1e3 * busy_s / steps,
-               device_busy_share=busy_s / prof_wall,
-               paged_ms_per_step=sum(us for us, k, _ in rows
-                                     if "PagedSrc" in k) / 1e3 / steps,
-               top_kernels=[dict(name=k[:90], ms_per_step=us / 1e3 / steps,
-                                 calls_per_step=c / steps)
-                            for us, k, c in rows[:10]])
-    log(f"  offload decode step (B={B}): host {res['step_host_ms']:.2f} ms "
-        f"= id-sync wait {res['id_sync_ms']:.2f} + translate "
-        f"{res['translate_ms']:.2f} + admission drain {res['drain_ms']:.2f} "
-        f"+ enqueue/glue {res['enqueue_ms']:.2f}; synced wall "
-        f"{res['step_wall_ms']:.2f} ms; host->device "
-        f"{res['h2d_mb_per_step']:.2f} MB per step; device busy "
-        f"{res['device_busy_ms']:.2f} ms ({100 * res['device_busy_share']:.1f}"
-        f"% of the profiled wall); paged kernel {res['paged_ms_per_step']:.3f}"
-        f" ms per step")
-    for k in res["top_kernels"]:
-        log(f"    {k['ms_per_step']:8.3f} ms/step {k['calls_per_step']:6.1f} "
-            f"calls  {k['name']}")
+    res = dict(step_host_ms=host_ms, step_wall_ms=1e3 * sum(wall) / steps)
+    for name, k in OFFLOAD_TIMES:
+        res[name] = 1e3 * per[k]
+    res["rest_ms"] = host_ms - sum(res[n] for n, _ in OFFLOAD_TIMES)
+    res.update(
+        h2d_mb_per_step=per["h2d_bytes"] / 1e6,
+        profiled_step_ms=1e3 * prof_wall / steps,
+        device_busy_ms=1e3 * busy_s / steps,
+        device_busy_share=busy_s / prof_wall,
+        kernels_per_step=sum(r[2] for r in rows) / steps,
+        attention_kernels={name: dict(
+            ms_per_step=sum(us for us, k, _ in rows if tag in k) / 1e3 / steps,
+            launches_per_step=sum(c for _, k, c in rows if tag in k) / steps)
+            for name, tag in KERNEL_TAGS.items()},
+        top_kernels=[dict(name=k[:90], ms_per_step=us / 1e3 / steps,
+                          calls_per_step=c / steps)
+                     for us, k, c in rows[:10]])
     return res
+
+
+def offload_breakdown(engine, state, max_ctx, steps=8):
+    """The offload decode step eagerly and replayed, in one call from one
+    state: a copy of the serve's plane (host control plane and block
+    caches) stepping a copy of the state's live fields through its stage
+    run eagerly, then the serve's own plane replaying its captured stage
+    (``offload_step_stats`` each). Then one replayed step profiled alone:
+    its attention launches (split + combine per layer) are what the
+    capture recorded."""
+    import numpy as np
+    import torch
+    plane = engine.last_plane
+    tokens = plane.stage.tokens
+    res = {}
+    with torch.inference_mode():
+        eager = plane_copy(engine, plane, max_ctx)
+        eager_state = _live_copy(state)
+        eager_tok = tokens.clone()
+        res["eager"] = offload_step_stats(eager, eager_state, eager_tok,
+                                          steps)
+        del eager, eager_state
+        res["replay"] = offload_step_stats(plane, state, tokens, steps)
+        rows, _ = _profile_rows(
+            lambda: plane.decode_step(state, tokens, np.ones(plane.B, bool)),
+            1)
+    tag = KERNEL_TAGS[IMPL_KERNEL[engine.attn_impl]]
+    n = sum(c for _, k, c in rows if tag in k)
+    res["profiled_replay"] = dict(attention_launches=n,
+                                  kernels=sum(r[2] for r in rows))
+    for name in ("eager", "replay"):
+        r = res[name]
+        log(f"  offload {name:6s} step (B={plane.B}): host "
+            f"{r['step_host_ms']:.2f} ms = id wait {r['id_wait_ms']:.2f} + "
+            f"translate {r['translate_ms']:.2f} + H2D staging "
+            f"{r['h2d_staging_ms']:.2f} + launch {r['launch_ms']:.2f} + "
+            f"drain {r['drain_ms']:.2f} + rest {r['rest_ms']:.2f}; synced "
+            f"wall {r['step_wall_ms']:.2f} ms; host->device "
+            f"{r['h2d_mb_per_step']:.3f} MB per step; device busy "
+            f"{r['device_busy_ms']:.2f} ms ({100 * r['device_busy_share']:.1f}"
+            f"% of the profiled wall), {r['kernels_per_step']:.0f} kernels")
+        for k in r["top_kernels"][:6]:
+            log(f"    {k['ms_per_step']:8.3f} ms/step "
+                f"{k['calls_per_step']:6.1f} calls  {k['name']}")
+    log(f"  one profiled replayed step: {n} attention kernel launches "
+        f"(want {2 * engine.cfg.n_layers}), "
+        f"{res['profiled_replay']['kernels']} kernels")
+    if n != 2 * engine.cfg.n_layers:
+        raise AssertionError(f"a profiled offload replay launched {n} "
+                             f"attention kernels")
+    return res
+
+
+def compiled_offload_check(engine, state, max_ctx, steps=8):
+    """Phase 10's offload part, on the state an offload serve left: for
+    "fused", "pallas" and "jnp", two copies of the serve's plane (host
+    control plane and block caches) and of the state's live fields; one
+    plane steps eagerly, the other captures (its first step eagerly, then
+    replays), ``steps`` steps each. The logits must be the same bits, the
+    ids and every wave-buffer counter, degraded count and byte count the
+    same; one profiled replayed step must launch 2 x layers attention
+    kernels for the impls that have one."""
+    import numpy as np
+    import torch
+    plane = engine.last_plane
+    served_impl = engine.attn_impl
+    active = np.ones(plane.B, bool)
+    out = {}
+    try:
+        for impl in ("fused", "pallas", "jnp"):
+            engine.attn_impl = impl
+            runs = {}
+            with torch.inference_mode():
+                for capture in (False, True):
+                    p = plane_copy(engine, plane, max_ctx)
+                    st, tok = _live_copy(state), plane.stage.tokens.clone()
+                    seq = []
+                    for _ in range(steps):
+                        lg, _ = p.decode_step(st, tok, active)
+                        seq.append((lg.clone(), p.stage.ids.clone()))
+                        if capture:
+                            p.stage.capture_pieces()
+                    torch.cuda.synchronize()
+                    runs[capture] = (p, st, tok, seq, plane_counters(p),
+                                     p.stage.replays)
+                p, st, tok = runs[True][:3]
+                rows, _ = _profile_rows(
+                    lambda: p.decode_step(st, tok, active), 1)
+            (pe, _, _, eager, ce, _), (pg, _, _, replay, cg, replays) = \
+                runs[False], runs[True]
+            same = all(torch.equal(a[0], b[0]) for a, b in zip(eager, replay))
+            ids = all(torch.equal(a[1], b[1]) for a, b in zip(eager, replay))
+            finite = all(torch.isfinite(a[0]).all() for a in replay)
+            tag = KERNEL_TAGS.get(IMPL_KERNEL.get(impl))
+            n_attn = sum(c for _, k, c in rows if tag and tag in k)
+            want_attn = 2 * engine.cfg.n_layers if tag else 0
+            name = "offload_" + impl
+            out[name] = dict(
+                bit_identical=same, ids_equal=ids, counters_equal=ce == cg,
+                captures=pg.stage.captures, replays=replays,
+                kernels_per_replay=sum(r[2] for r in rows),
+                attention_launches_per_replay=n_attn,
+                attention_kernel=IMPL_KERNEL.get(impl), counters=cg)
+            log(f"  {name}: {steps} eager vs {steps} captured steps (1 "
+                f"warm-up + {replays} replays) from one state and "
+                f"one copied host plane: logits bit-identical {same}, ids "
+                f"equal {ids}, counters equal {ce == cg} ("
+                f"{cg['cache']['lookups']} lookups, {cg['cache']['hits']} "
+                f"hits, {cg['h2d_bytes'] / 1e6:.2f} MB to the device); one "
+                f"profiled replayed step: {out[name]['kernels_per_replay']} "
+                f"kernels, {n_attn} attention launches (want {want_attn})")
+            if not (same and ids and finite and ce == cg
+                    and n_attn == want_attn and pg.stage.captures == 1
+                    and replays == steps - 1):
+                raise AssertionError(f"compiled offload {impl}: {out[name]}")
+            del runs, pe, pg, p, st, tok, eager, replay
+            torch.cuda.empty_cache()
+    finally:
+        engine.attn_impl = served_impl
+    return out
 
 
 def _serve_summary(cfg, params, impl, device, **kw):
@@ -1848,14 +2039,19 @@ def main(argv=None):
     offload_launch["bound_ms"], offload_launch["bound_by"] = \
         kernel_bound(args)
     offload_launch["block_store"] = list(args[6].shape)
-    log(f"    block store {tuple(args[6].shape)} (C + r slots), bound "
+    log(f"    block store {tuple(args[6].shape)} (C + r + 1 slots), bound "
         f"{offload_launch['bound_ms']:.4f} ms ({offload_launch['bound_by']})")
     results["paged_wave_attention"].append(offload_launch)
     del taken6, args
     vs_direct, off_state = offload_vs_direct(engine6, max(prompt_lens6))
     log("  offload decode-step breakdown (after the run, both slots "
-        "decoding)")
-    breakdown6 = offload_breakdown(engine6, off_state)
+        "decoding): a copy of the plane stepping eagerly, then the served "
+        "plane replaying")
+    breakdown6 = offload_breakdown(engine6, off_state, max(prompt_lens6))
+    log("phase 10 (offload part, on phase 6's state): the captured offload "
+        "stage against the eager one (fused, pallas, jnp)")
+    compiled_offload = compiled_offload_check(engine6, off_state,
+                                              max(prompt_lens6))
     del engine6, off_state
     torch.cuda.empty_cache()
     red_offload = {impl: reduced_offload_across_devices(impl)
@@ -1965,6 +2161,7 @@ def main(argv=None):
     params10 = M.init_params(CONFIG, torch.Generator(device="cuda")
                              .manual_seed(10), "cuda")
     compiled = compiled_step_check(params10, CONFIG)
+    compiled.update(compiled_offload)
     del params10
     torch.cuda.empty_cache()
 

@@ -306,7 +306,10 @@ def wave_attention_attend(q, state: WaveState, retro: RetroConfig,
         # the reference compares in f32 (int position - f32 window)
         ok = ok & (p_exec.float() > qp.float() - window)
     if valid is not None and r > 0:        # degraded decode: mask failed
-        ret_ok = torch.repeat_interleave(valid > 0, cap, dim=2)
+        # each cluster's flag over its cap tokens (an expand: no host
+        # sync, so a CUDA graph can capture it)
+        ret_ok = (valid > 0)[..., None].expand(B, Hkv, r, cap) \
+            .reshape(B, Hkv, r * cap)
         n_steady = p_exec.shape[2] - r * cap
         ok = ok & torch.cat([torch.ones((B, Hkv, n_steady), dtype=torch.bool,
                                         device=ok.device), ret_ok], 2)

@@ -14,9 +14,10 @@ admission prefills a free slot's whole prompt (right-padded to a multiple
 of ``prefill_bucket``) in one pass before the next decode step; configs
 with block-sparse prefill always admit this way. The full runtime reads the
 whole dense cache each step, as the reference's compiled step does. On the
-card each direct-store decode step replays one captured CUDA graph per
-geometry (``serving/graphs.py``, the counterpart of the reference's
-per-geometry ``jax.jit``); the CPU runs the same step eagerly. First tokens
+card each decode step after a run's first replays captured CUDA graphs of
+one geometry (``serving/graphs.py``, the counterpart of the reference's
+per-geometry ``jax.jit``): one graph per direct-store step, one per offload
+layer piece; the CPU runs the same steps eagerly. First tokens
 of all requests admitted in the same iteration are sampled on device and
 read back with one coalesced copy.
 Decode sampling stays on device: step t's ids are copied to pinned host
@@ -30,7 +31,7 @@ and decode attention reads a per-layer device block cache through cache-slot
 ids: hits from the cache, misses fetched from the host into a per-step
 staging tail, cache admissions deferred off the hot path. The decode loop
 then reads the retrieved ids back once per layer (the paper's CPU control
-plane). See ``_OffloadPlane``. Offload steps run eagerly.
+plane), between the replays of the layer pieces. See ``_OffloadPlane``.
 """
 from __future__ import annotations
 
@@ -51,9 +52,9 @@ from repro_torch.core.wave_buffer import (BufferStats, FatalTransportError,
 from repro_torch.core.wave_index import local_buffer_size
 from repro_torch.core.zones import plan_zones
 from repro_torch.models import model as M
-from repro_torch.models.transformer import (HOT_FIELDS, LIVE_FIELDS,
-                                            ServeState, torch_dtype)
-from repro_torch.serving.graphs import DecodeGraph
+from repro_torch.models.transformer import (LIVE_FIELDS, ServeState,
+                                            torch_dtype)
+from repro_torch.serving.graphs import DecodeGraph, OffloadStage
 
 
 @dataclass
@@ -184,17 +185,16 @@ class _Admission:
 
 
 class _Readback:
-    """Device (B,) ids copied to host without blocking; ``get`` waits for
-    that copy only (not for work enqueued after it)."""
+    """Device (B,) ids copied into the (pinned, for a CUDA device) host
+    buffer ``host`` without blocking; ``get`` waits for that copy only (not
+    for work enqueued after it)."""
 
-    def __init__(self, ids: torch.Tensor):
+    def __init__(self, ids: torch.Tensor, host: torch.Tensor):
+        self.host, self.event = host, None
+        host.copy_(ids, non_blocking=True)
         if ids.device.type == "cuda":
-            self.host = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
-            self.host.copy_(ids, non_blocking=True)
             self.event = torch.cuda.Event()
             self.event.record()
-        else:
-            self.host, self.event = ids.clone(), None
 
     def get(self) -> np.ndarray:
         if self.event is not None:
@@ -236,9 +236,10 @@ class _OffloadPlane:
     (layer, slot, kv-head) row over packed f32 payload rows ``[K | V | pos]``
     (the reference's layout: exact for bf16/f32 stores and integer
     positions, so cache placement is bit-transparent). The device keeps, per
-    layer, a block cache of ``C + r`` slots: slots [0, C) mirror each row's
-    ``WaveBuffer.cache`` and the tail r slots stage the step's misses. Each
-    decode step runs per layer:
+    layer, a block cache of ``C + r + 1`` slots: slots [0, C) mirror each
+    row's ``WaveBuffer.cache``, the tail r slots stage the step's misses and
+    the last is a dead slot that only padded writes reach. Each decode step
+    runs per layer:
 
       rank (device) -> id readback -> translate ids through the mapping
       tables (hits -> cache slots, misses -> staging slots, miss payloads
@@ -250,15 +251,22 @@ class _OffloadPlane:
     Layer-pipelined as in the reference: right after layer l's attend is
     enqueued, layer l+1's rank is enqueued and its id copy started (a pinned
     buffer behind an event); only then does layer l's admission drain run
-    on the host, so the id wait overlaps the drain. Host->device traffic is
-    the translated slot ids and validity mask, and only the payload rows
-    that change the cache (fetched misses, admissions): the staging tail is
-    reset on the device, then the fetched rows are written at their slots,
-    which leaves the same cache as the reference's whole-tail restage.
-    Every layer attends with the mask and the retrieval cover, as the
-    reference does, so a row's logits never depend on another row's faults.
-    Every dispatch / host op / sync calls ``trace`` (a no-op), in the
-    reference's program order. ``timing`` sums the host's time per piece.
+    on the host, so the id wait overlaps the drain. The device work runs
+    through an ``OffloadStage`` (``serving/graphs.py``): ``L + 1`` pieces on
+    static buffers, replayed as CUDA graphs once its owner has captured
+    them (``ServeEngine.serve`` on the card), else run eagerly.
+    Host->device traffic is the active mask, the translated slot ids and
+    validity mask and the padded admission / miss ids, and only the payload
+    rows that change the cache (fetched misses, admissions): the staging
+    tail is reset on the device, then the fetched rows are written at their
+    slots, which leaves the same cache as the reference's whole-tail
+    restage. Every layer attends with the mask and the retrieval cover, as
+    the reference does, so a row's logits never depend on another row's
+    faults. Every dispatch / host op / sync calls ``trace`` (a no-op), in
+    the reference's program order. ``timing`` sums the host's time per
+    piece: the id waits, the translate, the staging of the next piece's
+    inputs (``stage_s``), the launch of the pieces (``launch_s``: replays,
+    or the eager enqueue) and the drain.
     """
 
     def trace(self, op: str, layer: int, kind: str, step: int,
@@ -276,11 +284,12 @@ class _OffloadPlane:
         self.C = engine._resolve_cache_clusters(self.M)
         self.policy = engine.cache_policy
         C, r, cap, dev = self.C, self.r, cfg.retro.cluster_cap, self.dev
-        self.cache_k = [torch.zeros((B, self.H, C + r, cap, cfg.head_dim),
+        # slot C + r: the dead slot of the stage's padded cache writes
+        self.cache_k = [torch.zeros((B, self.H, C + r + 1, cap, cfg.head_dim),
                                     dtype=torch_dtype(cfg), device=dev)
                         for _ in range(self.L)]
         self.cache_v = [torch.zeros_like(c) for c in self.cache_k]
-        self.cache_p = [torch.full((B, self.H, C + r, cap), -1,
+        self.cache_p = [torch.full((B, self.H, C + r + 1, cap), -1,
                                    dtype=torch.int32, device=dev)
                         for _ in range(self.L)]
         # per (layer, slot, head) host buffer; None until the slot is admitted
@@ -306,42 +315,20 @@ class _OffloadPlane:
         self.dropped_cluster_steps = 0      # cluster-step masked count
         self.failed_slots: Dict[int, str] = {}   # slot -> fatal fault message
         self.timing = dict(steps=0, sync_s=0.0, translate_s=0.0,
-                           drain_s=0.0, h2d_bytes=0, admit_s=[])
-        self.cfg, self.params, self.plan = cfg, engine.params, plan
-        self.attn_impl = engine.attn_impl
-        (self._embed, self._rank, self._attend, self._unembed,
-         self._flush) = M.offload_decode_fns(cfg)
+                           stage_s=0.0, launch_s=0.0, drain_s=0.0,
+                           h2d_bytes=0, admit_s=[])
+        self.cfg = cfg
+        self._flush = M.offload_decode_fns(cfg)[-1]
+        self.stage = OffloadStage(
+            cfg, engine.params, plan, engine.attn_impl,
+            (self.cache_k, self.cache_v, self.cache_p), C,
+            sample=engine._sample_dev,
+            key=(B, max_ctx, C, r, engine.attn_impl))
 
     def _h2d(self, a: np.ndarray) -> torch.Tensor:
         """Host array -> device, counted in ``timing["h2d_bytes"]``."""
         self.timing["h2d_bytes"] += a.nbytes
         return to_device(a, self.dev)
-
-    def _scatter(self, l, ids_rows) -> None:
-        """Write host packed rows ``((3, n) [row, head, slot] ids, (n, D)
-        rows)`` into layer ``l``'s device cache. Every id is in range: the
-        control plane never builds the out-of-range ids that the reference
-        writes and XLA drops (an out-of-range index faults in torch)."""
-        ids, rows = ids_rows
-        b, h, s = self._h2d(ids).long()
-        rows = self._h2d(rows)
-        n = rows.shape[0]
-        cap, hd = self.cfg.retro.cluster_cap, self.cfg.head_dim
-        ck, cv, cp = self.cache_k[l], self.cache_v[l], self.cache_p[l]
-        ck[b, h, s] = rows[:, :cap * hd].reshape(n, cap, hd).to(ck.dtype)
-        cv[b, h, s] = rows[:, cap * hd:2 * cap * hd] \
-            .reshape(n, cap, hd).to(cv.dtype)
-        cp[b, h, s] = rows[:, 2 * cap * hd:].to(cp.dtype)
-
-    def _restage(self, l, miss) -> None:
-        """Restage layer ``l``'s tail [C, C + r): emptied, then this step's
-        fetched misses written at their slots."""
-        C = self.C
-        self.cache_k[l][:, :, C:].zero_()
-        self.cache_v[l][:, :, C:].zero_()
-        self.cache_p[l][:, :, C:].fill_(-1)
-        if miss is not None:
-            self._scatter(l, miss)
 
     # ----------------------------------------------------------- admission
     def admit_slot(self, i: int, st1) -> None:
@@ -456,68 +443,63 @@ class _OffloadPlane:
         return self.pending_adm[l] is not None
 
     # ------------------------------------------------------------- decode
-    def _launch_rank(self, l, kv, x, act_dev, t):
-        """Enqueue layer ``l``'s rank and start its retrieved-id copy to the
-        host (non-blocking); the matching wait is at this layer's turn in
-        ``decode_step``."""
-        live = {f: getattr(kv[l], f) for f in LIVE_FIELDS}
-        self.trace("rank_fn", l, "dispatch", t)
-        ctx, idx_r, live = self._rank(
-            self.params["layers"][l], self.params["window"][l], self.cfg,
-            live, x, plan=self.plan, active=act_dev)
-        self.trace("readback_start", l, "host", t)
-        return ctx, _Readback(idx_r), live
-
     def decode_step(self, state, tokens_dev, active):
         """One decode step over the slot batch, layer-pipelined (see the
-        class docstring). Returns (device logits, new state)."""
+        class docstring), through the stage's pieces. The greedy ids are
+        written into ``tokens_dev`` (and the stage's ``ids``). Returns
+        (device logits, the state, updated in place); the logits are the
+        stage's static buffer, which the next step overwrites."""
         self._step += 1
         t = self._step
         tm = self.timing
         tm["steps"] += 1
         drops_before = self.dropped_cluster_steps
+        st = self.stage
+        st.bind(state, tokens_dev)
+        t0 = time.perf_counter()
+        tm["h2d_bytes"] += st.set_active(active)
         self.trace("embed_tokens", -1, "dispatch", t)
-        x = self._embed(self.params, self.cfg, tokens_dev)
-        act_dev = self._h2d(active)
-        kv = list(state.kv)
-        nxt = self._launch_rank(0, kv, x, act_dev, t)
+        self.trace("rank_fn", 0, "dispatch", t)
+        st.run(0)
+        self.trace("readback_start", 0, "host", t)
+        tm["launch_s"] += time.perf_counter() - t0
         for l in range(self.L):
-            ctx, readback, live = nxt
             # the paper's CPU control plane needs the retrieved ids on the
-            # host; their copy started when the rank was enqueued
+            # host; their copy was enqueued with the rank
             self.trace("readback_ids", l, "sync", t)
             t0 = time.perf_counter()
-            ids = readback.get()
+            ids = st.wait_ids()
             t1 = time.perf_counter()
             self.trace("translate", l, "host", t)
             sv, miss = self._translate(l, ids, active)
-            tm["sync_s"] += t1 - t0
-            tm["translate_s"] += time.perf_counter() - t1
-            if self.pending_adm[l] is None:     # warm cache: staging only
-                self.trace("cache_stage", l, "dispatch", t)
-            else:       # the previous step's admissions mirror into [0, C)
-                self.trace("cache_upd", l, "dispatch", t)
-                self._scatter(l, self.pending_adm[l])
-            self._restage(l, miss)
-            sv = self._h2d(sv)
+            t2 = time.perf_counter()
+            # the previous step's admissions (if any) mirror into [0, C),
+            # this step's misses into the staging tail
+            self.trace("cache_stage" if self.pending_adm[l] is None
+                       else "cache_upd", l, "dispatch", t)
+            tm["h2d_bytes"] += st.load(sv, self.pending_adm[l], miss)
+            t3 = time.perf_counter()
             self.trace("attend_fn", l, "dispatch", t)
-            x = self._attend(
-                self.params["layers"][l], self.params["window"][l], self.cfg,
-                live, x, ctx, self.cache_k[l], self.cache_v[l],
-                self.cache_p[l], sv[0], sv[1], plan=self.plan,
-                attn_impl=self.attn_impl)
-            kv[l] = kv[l]._replace(**{f: live[f] for f in HOT_FIELDS})
-            if l + 1 < self.L:      # pipeline: next rank before this drain
-                nxt = self._launch_rank(l + 1, kv, x, act_dev, t)
-            t0 = time.perf_counter()
+            last = l + 1 == self.L
+            if not last:        # pipeline: next rank before this drain
+                self.trace("rank_fn", l + 1, "dispatch", t)
+            st.run(l + 1)
+            if not last:
+                self.trace("readback_start", l + 1, "host", t)
+            t4 = time.perf_counter()
             queued = self._drain_admissions(l, active)   # off the hot path
-            tm["drain_s"] += time.perf_counter() - t0
+            t5 = time.perf_counter()
             self.trace("drain_admissions", l, "host", t, queued=queued)
+            tm["sync_s"] += t1 - t0
+            tm["translate_s"] += t2 - t1
+            tm["stage_s"] += t3 - t2
+            tm["launch_s"] += t4 - t3
+            tm["drain_s"] += t5 - t4
+        # (run with the last layer's piece)
         self.trace("unembed_logits", -1, "dispatch", t)
-        logits = self._unembed(self.params, self.cfg, x)
         if self.dropped_cluster_steps > drops_before:
             self.degraded_steps += 1
-        return logits, ServeState(kv=kv)
+        return st.logits, state
 
     # -------------------------------------------------------------- flush
     def flush(self, state, rows):
@@ -662,8 +644,9 @@ class ServeEngine:
     def serve(self, requests: List[Request],
               batch_size: int) -> ServeMetrics:
         """Serve a FIFO queue through ``batch_size`` continuous slots. The
-        decode state and its captured step (``last_graph``) belong to this
-        call: each call captures once, at its geometry."""
+        decode state and its captured step (``last_graph``: a
+        ``DecodeGraph``, or with offload the plane's ``OffloadStage``)
+        belong to this call: each call captures once, at its geometry."""
         cfg, dev, rt = self.cfg, self.device, self.runtime
         if not requests:
             raise ValueError("no requests")
@@ -697,7 +680,11 @@ class ServeEngine:
         admit_t = np.zeros(B, float)
         # the step's token buffer: written in place, never rebound
         tokens_dev = torch.zeros((B,), dtype=torch.int32, device=dev)
-        graph = None if plane is not None else DecodeGraph(
+        # the ids' host buffers, alternated: step t's are read after step
+        # t + 1 is enqueued, and step t + 2 writes them after that read
+        h_ids = [torch.zeros((B,), dtype=torch.int32,
+                             pin_memory=dev.type == "cuda") for _ in range(2)]
+        graph = plane.stage if plane is not None else DecodeGraph(
             self._decode_fn(plan), self._sample_dev, state,
             tokens_dev, key=(B, max_ctx, self.attn_impl, rt))
         prev: Optional[_Readback] = None    # step t's ids (copy in flight)
@@ -811,18 +798,17 @@ class ServeEngine:
             t0 = time.perf_counter()
             cur = None
             if active.any():
+                # the ids (a static output; the step also writes them into
+                # tokens_dev) are copied to the host on this stream after
+                # this step and before the next one overwrites them: stream
+                # order keeps it safe
                 if plane is not None:
-                    logits, state = plane.decode_step(state, tokens_dev,
-                                                      active)
-                    new_sampled = self._sample_dev(logits)   # device, no sync
-                    tokens_dev.copy_(new_sampled)
+                    plane.decode_step(state, tokens_dev, active)
+                    new_sampled = graph.ids
+                    graph.capture_pieces()      # after the first step
                 else:
-                    # the ids (a replay's static output; the step also
-                    # writes them into tokens_dev) are copied to the host
-                    # on this stream after this step and before the next
-                    # replay overwrites them: stream order keeps it safe
                     _, new_sampled = graph.step(active, state)
-                cur = _Readback(new_sampled)
+                cur = _Readback(new_sampled, h_ids[metrics.steps % 2])
                 snapshot = [slots[i] if active[i] else None for i in range(B)]
                 metrics.steps += 1
                 metrics.occupied_slot_steps += int(active.sum())
