@@ -8,6 +8,10 @@
    the card, at full-width gemma2-2b decode shapes and on edge cases;
 2b. holds the gathered-buffer wave-attention kernel, the block gather and
    the k-means step against their twins on full-width synthetic cases;
+   for the k-means step also: two calls give the same bits, the sums equal
+   the point-order sums over its own assignments, its split by device
+   kernel, its 3xTF32 and f32 bounds, and the main path's plain Lloyd loop
+   (``core/clustering.py::spherical_kmeans``) timed beside the op's loop;
 2c. holds both attention kernels against their twins at the decode shapes
    of minitron-8b (8 KV heads, G 4, hd 128) and gemma3-1b (one KV head,
    G 4, hd 256, window 512);
@@ -91,6 +95,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -114,6 +119,7 @@ KERNELS = {
 }
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOPS = 67e12                  # H100 SXM, f32 outside the tensor cores
+TF32_FLOPS = 495e12                # H100 SXM, TF32 tensor cores, dense
 SPIN_CYCLES = 4_000_000            # ~2 ms at the H100's 1.98 GHz boost clock
 
 
@@ -279,13 +285,22 @@ def gather_bound(idx, k_store):
 
 
 def kmeans_bound(x, cent):
-    """One k-means step: the similarity (2 n k d), the sums (n d adds) and
-    the normalisation (3 k d) per segment, in f32; x and the centroids read,
-    sums, counts and assignments written."""
+    """One k-means step; x and the centroids read, sums, counts and
+    assignments written. Returns (ms, bound_by, f32 ms): the bound of the
+    arithmetic the kernel runs, the similarity's 2 n k d per segment three
+    times over in TF32 (3xTF32) at the tensor cores' peak, or the bytes,
+    whichever is larger ("operations (3xTF32)" or "bytes"); and beside it
+    the f32 bound, every flop (similarity, the sums' n d adds, the
+    normalisation's 3 k d) at the f32 peak outside the tensor cores."""
     S, n, d = x.shape
     k = cent.shape[1]
-    flops = S * (2 * n * k * d + n * d + 3 * k * d)
-    return bound(_nbytes(x, cent) + S * (k * d + k + n) * 4, flops)
+    nbytes = _nbytes(x, cent) + S * (k * d + k + n) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_tc = 3 * S * 2 * n * k * d / TF32_FLOPS * 1e3
+    f32_ms, _ = bound(nbytes, S * (2 * n * k * d + n * d + 3 * k * d))
+    if t_tc >= t_bytes:
+        return t_tc, "operations (3xTF32)", f32_ms
+    return t_bytes, "bytes", f32_ms
 
 
 def merge_cases():
@@ -313,9 +328,34 @@ def gather_case(device="cuda", seed=0):
     idx = torch.randint(0, 1280, (2, 4, 18), generator=g, device=device,
                         dtype=torch.int32)
     idx[:, :, 1] = idx[:, :, 0]                          # repeated ids
-    res = check_gather("gather_full_width_bf16", idx, ks, vs)
+    res = check_gather("gather_full_width_bf16", idx, ks, vs, time_it=True)
     del ks, vs
     return res
+
+
+def device_ms(fn, key, reps=20, clean=False):
+    """Mean device duration in ms of the kernels whose name holds ``key``,
+    as ``torch.profiler`` sees them, over ``reps`` calls of ``fn``, each
+    after writing 128 MiB (L2 cold, as ``time_ms``; ``clean``: after reading
+    it, so the L2 the call finds holds no dirty lines to write back). Unlike
+    ``time_ms`` it leaves out the launch's own latency on the device."""
+    import torch
+    scrub = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
+    total = torch.zeros((), device="cuda")
+    for _ in range(3):
+        fn()
+
+    def call():
+        if clean:
+            torch.sum(scrub, dim=0, out=total)
+        else:
+            scrub.fill_(1.0)
+        fn()
+    rows = [(us, n) for us, name, n in _profile_rows(call, reps)[0]
+            if key in name]
+    if not rows:
+        raise AssertionError(f"profiler saw no kernel named *{key}*")
+    return sum(us for us, _ in rows) / sum(n for _, n in rows) / 1e3
 
 
 def check_gather(name, idx, k_store, v_store, *, time_it=False):
@@ -341,10 +381,19 @@ def check_gather(name, idx, k_store, v_store, *, time_it=False):
         res["library_ms"] = time_ms(lambda: (torch.gather(k_store, 2, i),
                                              torch.gather(v_store, 2, i)))
         res["bound_ms"], res["bound_by"] = gather_bound(idx, k_store)
+        # the kernel's own duration, and what time_ms gives a kernel that
+        # does nothing: the floor of its launch on the device
+        res["device_ms"], res["device_ms_clean_l2"] = (device_ms(
+            lambda: gops.block_gather_op(idx, k_store, v_store),
+            "block_gather", clean=clean) for clean in (False, True))
+        one = torch.zeros(1, device="cuda")
+        res["empty_kernel_ms"] = time_ms(lambda: one.fill_(0.0))
     log(f"  {name}: bit-exact {err == 0.0}"
-        + (f"  kernel {res['ms']:.4f} ms  twin {res['plain_ms']:.4f} ms  "
-           f"torch.gather {res['library_ms']:.4f} ms  bound "
-           f"{res['bound_ms']:.4f} ms" if time_it else ""))
+        + (f"  kernel {res['ms']:.4f} ms (device {res['device_ms']:.4f}, "
+           f"{res['device_ms_clean_l2']:.4f} after a clean L2; an empty "
+           f"kernel {res['empty_kernel_ms']:.4f})  twin "
+           f"{res['plain_ms']:.4f} ms  torch.gather {res['library_ms']:.4f} "
+           f"ms  bound {res['bound_ms']:.4f} ms" if time_it else ""))
     if launches != 1 or not (torch.equal(ko, kr) and torch.equal(vo, vr)):
         raise AssertionError(f"{name}: {launches} launches, block gather "
                              f"bit-exact {err == 0.0}")
@@ -361,9 +410,11 @@ def kmeans_case(S=8, n=8192, d=256, k=512, iters=10, seed=0,
     centroids (``ref.kmeans_step_check``), the loop going on from the
     kernel's own update."""
     import torch
+    from repro_torch.core.clustering import spherical_kmeans
     from repro_torch.kernels.kmeans import ops as kops
     from repro_torch.kernels.kmeans.ref import (kmeans_step_check,
-                                                kmeans_update_ref)
+                                                kmeans_update_ref,
+                                                ordered_update_ref)
     g = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn((S, n, d), generator=g, device=device)
     cent = x[:, ::n // k][:, :k].contiguous()
@@ -397,15 +448,53 @@ def kmeans_case(S=8, n=8192, d=256, k=512, iters=10, seed=0,
                tol=chk["sums_tol_at_worst"], launches=launches,
                sums_max_abs_err=chk["sums_max_abs_err"],
                assign_near_tie_mismatches=mism)
+    # the update is deterministic: two calls give the same bits, and the
+    # sums are the point-order sums over the kernel's own assignments
+    one, two = kops.kmeans_step(x, cent0), kops.kmeans_step(x, cent0)
+    res["bit_identical"] = all(torch.equal(a, b) for a, b in zip(one, two))
+    want = ordered_update_ref(x, one[2], k)
+    res["sums_equal_point_order"] = bool(torch.equal(one[0], want[0])
+                                         and torch.equal(one[1], want[1]))
+    del one, two, want
+    if not (res["bit_identical"] and res["sums_equal_point_order"]):
+        raise AssertionError(f"kmeans step: bit-identical "
+                             f"{res['bit_identical']}, point-order sums "
+                             f"{res['sums_equal_point_order']}")
     res["ms"] = time_ms(lambda: kops.kmeans_step(x, cent0))
     res["plain_ms"] = time_ms(lambda: kops.kmeans_step_plain(x, cent0))
-    res["bound_ms"], res["bound_by"] = kmeans_bound(x, cent0)
+    res["bound_ms"], res["bound_by"], res["bound_f32_ms"] = \
+        kmeans_bound(x, cent0)
+    # the step's device time by kernel (four launches a step)
+    rows, _ = _profile_rows(lambda: kops.kmeans_step(x, cent0), 5)
+    res["split_ms"] = {re.search(r"\w+_kernel", name).group(0): us / 5e3
+                       for us, name, _ in rows}
+    if sorted(res["split_ms"]) != ["assign_kernel", "normalize_kernel",
+                                   "order_kernel", "sums_kernel"]:
+        raise AssertionError(f"kmeans step launched {rows}")
+    # the main path's own clustering loop (plain code) at the same shape,
+    # against the op's loop, from the same initial centroids
+    plain_assign = spherical_kmeans(x, k, iters, centering=False)
+    res["plain_loop_agree"] = float(
+        (plain_assign == assign_op.long()).float().mean())
+    res["plain_loop_ms"] = time_ms(
+        lambda: spherical_kmeans(x, k, iters, centering=False), reps=3)
+    res["op_loop_ms"] = time_ms(
+        lambda: kops.segmented_kmeans_op(x, cent0, iters=iters), reps=5)
     log(f"  segmented_kmeans_op: {launches} launches; kmeans ({S}, {n}, "
         f"{d}) k {k}, {iters} steps + final assign: "
         f"sums worst {res['max_abs_err']:.3e} vs tol {res['tol']:.3e} "
-        f"(step {it}), {mism} assignments differ, all at near-ties; kernel "
+        f"(step {it}), {mism} assignments differ, all at near-ties; two "
+        f"calls bit-identical, sums == point-order sums; kernel "
         f"{res['ms']:.4f} ms  twin {res['plain_ms']:.4f} ms  bound "
-        f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}; f32 "
+        f"{res['bound_f32_ms']:.4f} ms)")
+    log("    split of a step by device kernel (ms): " + ", ".join(
+        f"{name} {ms:.4f}" for name, ms in res["split_ms"].items()))
+    log(f"    the main path's plain Lloyd loop (core/clustering.py::"
+        f"spherical_kmeans, {iters} iterations, centering=False) "
+        f"{res['plain_loop_ms']:.3f} ms against the op's loop "
+        f"{res['op_loop_ms']:.3f} ms; final assignments agree on "
+        f"{res['plain_loop_agree']:.4f} of the points")
     return res
 
 
@@ -776,17 +865,28 @@ def device_kernels(prof):
 
 def _profile_rows(fn, steps):
     """``fn`` run ``steps`` times under ``torch.profiler``: (device kernel
-    rows, synced wall seconds)."""
+    rows, synced wall seconds). A session that records no device kernel at
+    all is run again, up to three sessions: in a process that has profiled
+    many times, one session in a while comes back without the card's
+    activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    return device_kernels(prof), wall
+    tries = 3
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        try:
+            return device_kernels(prof), wall
+        except AssertionError:
+            if attempt == tries - 1:
+                raise
+            log("  (profiler session saw no device kernel; profiling again)")
 
 
 def step_breakdown(fn, steps=8):
@@ -2197,7 +2297,9 @@ def main(argv=None):
             kernel_ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t.get("library_ms"),
-            launches_by_path=by_path.get(name, {})))
+            launches_by_path=by_path.get(name, {}),
+            **{key: t[key] for key in ("bound_f32_ms", "device_ms",
+                                       "device_ms_clean_l2") if key in t}))
     script_s = time.perf_counter() - t_script
     log(f"script {script_s:.1f} s")
     if opts.json is not None:

@@ -22,6 +22,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.gather.ref import block_gather_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "block_gather.cu"
+# bytes one CTA moves with one bulk copy in and one out
+CHUNK_BYTES = 8192
 
 
 def _lib() -> ctypes.CDLL:
@@ -29,8 +31,9 @@ def _lib() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = lib.block_gather
     fn.restype = I
-    # idx, k_store, v_store, k_out, v_out; BH, M, r, block_bytes; stream
-    fn.argtypes = [P] * 5 + [I] * 4 + [P]
+    # idx, k_store, v_store, k_out, v_out; BH, M, r, block_bytes,
+    # chunk_bytes; stream
+    fn.argtypes = [P] * 5 + [I] * 5 + [P]
     return lib
 
 
@@ -83,7 +86,7 @@ def block_gather_op(idx, k_store, v_store):
     vo = torch.empty_like(ko)
     err = _lib().block_gather(
         ids.data_ptr(), k_store.data_ptr(), v_store.data_ptr(), ko.data_ptr(),
-        vo.data_ptr(), B * H, M, r, block_bytes,
+        vo.data_ptr(), B * H, M, r, block_bytes, CHUNK_BYTES,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"block_gather kernel launch failed: cudaError "

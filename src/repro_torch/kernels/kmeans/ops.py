@@ -8,7 +8,8 @@ the full loop (a Python loop in place of ``lax.scan``). For a step:
 * CUDA tensors go to the CUDA kernel ``csrc/kmeans_step.cu`` (built at
   first use, loaded with ctypes) — it launches or raises.
 
-``kmeans_step.launches`` counts kernel launches (never twin runs). No
+``kmeans_step.launches`` counts wrapper calls that launch the kernel (one
+per step, though a step is four device launches; never twin runs). No
 serving path calls these: the port's clustering, like the reference's, is
 plain tensor code (``core/clustering.py``).
 """
@@ -23,6 +24,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.kmeans.ref import kmeans_step_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "kmeans_step.cu"
+# the kernel's centroid tile (BN) and dim chunk (BK) in csrc/kmeans_step.cu:
+# the normalised-centroid scratch is padded to multiples of them
+CENT_TILE, DIM_TILE = 256, 32
 
 
 def _lib() -> ctypes.CDLL:
@@ -30,8 +34,9 @@ def _lib() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = lib.kmeans_step
     fn.restype = I
-    # x, cent, cn (scratch), sums, counts, assign; S, n, k, d; stream
-    fn.argtypes = [P] * 6 + [I] * 4 + [P]
+    # x, cent; scratch cn, order, offs; sums, counts, assign;
+    # S, n, k, d, kp, dp; stream
+    fn.argtypes = [P] * 8 + [I] * 6 + [P]
     return lib
 
 
@@ -46,6 +51,10 @@ def _check(x, cent):
         raise ValueError(f"cent on {cent.device}, x on {x.device}")
 
 
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
 def kmeans_step_plain(x, cent):
     """The plain twin on the wrapper's arguments, on any device."""
     _check(x, cent)
@@ -56,8 +65,8 @@ def kmeans_step(x, cent):
     """x: (S, n, d) f32 (pre-centred keys); cent: (S, k, d) f32 ->
     (sums (S, k, d) f32, counts (S, k) f32, assign (S, n) int32): spherical
     assignment (lowest index on ties) and the clusters' sums and counts.
-    On the card the sums are added with atomics, so their f32 rounding
-    depends on the order the rows arrive in."""
+    On the card each cluster's sum adds its members in ascending point
+    order (``ref.ordered_update_ref``): two calls give the same bits."""
     dev = x.device
     if dev.type == "cpu":
         return kmeans_step_plain(x, cent)
@@ -69,13 +78,17 @@ def kmeans_step(x, cent):
     if S > 65535:
         raise ValueError(f"kernel takes at most 65535 segments, got {S}")
     x, cent = x.contiguous(), cent.contiguous()
-    cn = torch.empty_like(cent)
-    sums = torch.zeros((S, k, d), dtype=torch.float32, device=dev)
-    counts = torch.zeros((S, k), dtype=torch.float32, device=dev)
+    kp, dp = _round_up(k, CENT_TILE), _round_up(d, DIM_TILE)
+    cn = torch.empty(2 * S * kp * dp, dtype=torch.float32, device=dev)
+    order = torch.empty((S, max(n, 1)), dtype=torch.int32, device=dev)
+    offs = torch.empty((S, k + 1), dtype=torch.int32, device=dev)
+    sums = torch.empty((S, k, d), dtype=torch.float32, device=dev)
+    counts = torch.empty((S, k), dtype=torch.float32, device=dev)
     assign = torch.empty((S, n), dtype=torch.int32, device=dev)
     err = _lib().kmeans_step(
-        x.data_ptr(), cent.data_ptr(), cn.data_ptr(), sums.data_ptr(),
-        counts.data_ptr(), assign.data_ptr(), S, n, k, d,
+        x.data_ptr(), cent.data_ptr(), cn.data_ptr(), order.data_ptr(),
+        offs.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+        assign.data_ptr(), S, n, k, d, kp, dp,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"kmeans_step kernel launch failed: cudaError {err}")

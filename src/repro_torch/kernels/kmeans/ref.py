@@ -14,6 +14,38 @@ def kmeans_update_ref(x, assign, k: int):
     return torch.einsum("snk,snd->skd", onehot, x), onehot.sum(dim=1)
 
 
+def cluster_order_ref(assign, k: int):
+    """The point ids of each segment in cluster order, ascending within a
+    cluster, and the clusters' offsets into that order: the permutation the
+    CUDA kernel's ``order_kernel`` writes. assign: (S, n) in [0, k) ->
+    (order (S, n) int64, offsets (S, k + 1) int64); cluster c's members are
+    ``order[s, offsets[s, c]:offsets[s, c + 1]]``."""
+    order = torch.sort(assign.long(), dim=1, stable=True).indices
+    counts = torch.nn.functional.one_hot(assign.long(), k).sum(dim=1)
+    offsets = torch.nn.functional.pad(counts.cumsum(dim=1), (1, 0))
+    return order, offsets
+
+
+def ordered_update_ref(x, assign, k: int):
+    """The CUDA kernel's deterministic update: each cluster's sum adds its
+    members' rows one at a time in ascending point order, starting from
+    zero, in f32. Its sums are the kernel's bit for bit on the same
+    assignments (IEEE adds in the same order); against the one-hot sums of
+    ``kmeans_update_ref`` they differ only by the order of the additions.
+    x: (S, n, d); assign: (S, n) -> (sums (S, k, d), counts (S, k))."""
+    S, n, d = x.shape
+    order, offsets = cluster_order_ref(assign, k)
+    counts = offsets[:, 1:] - offsets[:, :-1]
+    sums = torch.zeros((S, k, d), dtype=x.dtype, device=x.device)
+    rows = torch.arange(S, device=x.device)[:, None]
+    for j in range(int(counts.max()) if n else 0):
+        live = counts > j                                   # (S, k)
+        at = torch.clamp(offsets[:, :-1] + j, max=n - 1)
+        pts = order.gather(1, at)                           # (S, k)
+        sums += torch.where(live[..., None], x[rows, pts], 0.0)
+    return sums, counts.to(x.dtype)
+
+
 def kmeans_similarity_ref(x, cent):
     """(S, n, k) inner products of x with the L2-normalised centroids."""
     cn = cent * torch.rsqrt(torch.clamp((cent * cent).sum(-1, keepdim=True),
@@ -49,7 +81,7 @@ def kmeans_step_check(x, cent, sums, counts, assign):
     * sums are recomputed by the twin from the kernel's OWN assignments and
       must agree within 2 c u sum|x| per cluster of c points: any order of
       c f32 additions is off by at most (c - 1) u sum|x|, and both sides
-      round (atomics land in any order);
+      round (the kernel adds in point order, the twin's matmul in its own);
     * counts are integers below 2^24: exact.
 
     Returns the measures and ``ok``."""

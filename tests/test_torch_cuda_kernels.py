@@ -3,7 +3,8 @@
 and the gathered-buffer wave attention (including many splits, several
 tiles per split through the cp.async ring, an all-empty row, and the same
 bits from two calls, and group sizes mixed in one process), the block
-gather and the k-means step. Imports no
+gather (chunked blocks, out-of-range ids, refused views) and the k-means
+step (ragged tiles, exact ties, bit-equal sums run to run). Imports no
 JAX, so it also runs on a machine with the card and without JAX:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
@@ -13,7 +14,8 @@ import torch
 
 from repro_torch.kernels.gather import ops as gather_ops
 from repro_torch.kernels.kmeans import ops as kmeans_ops
-from repro_torch.kernels.kmeans.ref import kmeans_step_check
+from repro_torch.kernels.kmeans.ref import (kmeans_step_check,
+                                            ordered_update_ref)
 from repro_torch.kernels.wave_attention import ops
 from repro_torch.kernels.wave_attention.ref import (random_decode_inputs,
                                                    random_merge_inputs)
@@ -147,13 +149,25 @@ def test_cuda_attention_across_group_sizes(cuda, op):
             2e-5 * (1 + ref.abs().max().item())
 
 
+def _stores(cuda, shape, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=cuda).to(dtype)
+                 for _ in range(2))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_block_gather_is_exact(cuda, dtype):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    kst, vst = (torch.randn((2, 2, 64, 16, 32), generator=g,
-                            device=cuda).to(dtype) for _ in range(2))
-    idx = torch.randint(0, 64, (2, 2, 9), generator=g, device=cuda,
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("cap,hd,r", [(16, 32, 9), (33, 256, 5), (32, 256, 1),
+                                      (1, 8, 4)])
+def test_cuda_block_gather_is_exact(cuda, dtype, cap, hd, r):
+    """Bit-exact against the twin and the same bits twice: blocks smaller
+    than, equal to and not a multiple of the kernel's chunk (cap 33, hd 256
+    in f32 is 33 KB: four 8 KB chunks and a short one), one slot (r 1),
+    and blocks of 16 bytes (cap 1, hd 8 in f16/bf16)."""
+    kst, vst = _stores(cuda, (2, 2, 64, cap, hd), dtype)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    idx = torch.randint(0, 64, (2, 2, r), generator=g, device=cuda,
                         dtype=torch.int32)
     idx[0, 0, :3] = 5                                  # repeated ids
     before = gather_ops.block_gather_op.launches
@@ -162,18 +176,102 @@ def test_cuda_block_gather_is_exact(cuda, dtype):
     assert gather_ops.block_gather_op.launches == before + 1
     kr, vr = gather_ops.block_gather_plain(idx, kst, vst)
     assert torch.equal(ko, kr) and torch.equal(vo, vr)
+    ko2, vo2 = gather_ops.block_gather_op(idx, kst, vst)
+    assert torch.equal(ko2, ko) and torch.equal(vo2, vo)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,n,d,k", [(4, 256, 32, 16), (2, 1000, 256, 70),
-                                     (1, 64, 16, 1)])
-def test_cuda_kmeans_step_matches_twin(cuda, S, n, d, k):
-    g = torch.Generator(device=cuda).manual_seed(n)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_block_gather_zero_fills_out_of_range_ids(cuda, dtype):
+    """Ids below 0 or at or above M give zero blocks (every chunk of them);
+    the other slots are copied exactly."""
+    kst, vst = _stores(cuda, (1, 2, 40, 33, 256), dtype)
+    idx = torch.tensor([[[3, -1, 40, 7, 1000], [39, 39, -5, 0, 2]]],
+                       dtype=torch.int32, device=cuda)
+    bad = (idx < 0) | (idx >= 40)
+    # leave NaNs where the outputs will be allocated: the zero fill must
+    # write every byte
+    poison = [torch.full((1, 2, 5, 33, 256), float("nan"), dtype=dtype,
+                         device=cuda) for _ in range(2)]
+    del poison
+    ko, vo = gather_ops.block_gather_op(idx, kst, vst)
+    torch.cuda.synchronize()
+    kr, vr = gather_ops.block_gather_plain(idx.clamp(0, 39), kst, vst)
+    for got, want in ((ko, kr), (vo, vr)):
+        assert (got[bad] == 0).all()
+        assert torch.equal(got[~bad], want[~bad])
+
+
+@pytest.mark.cuda
+def test_cuda_block_gather_refuses_misaligned_and_odd_blocks(cuda):
+    flat = torch.zeros(2 * 2 * 8 * 4 * 16 + 1, dtype=torch.bfloat16,
+                       device=cuda)
+    shifted = flat[1:].view(2, 2, 8, 4, 16)            # 2 bytes off
+    good = torch.zeros((2, 2, 8, 4, 16), dtype=torch.bfloat16, device=cuda)
+    idx = torch.zeros((2, 2, 3), dtype=torch.int32, device=cuda)
+    before = gather_ops.block_gather_op.launches
+    with pytest.raises(ValueError, match="aligned"):
+        gather_ops.block_gather_op(idx, shifted, good)
+    with pytest.raises(ValueError, match="aligned"):
+        gather_ops.block_gather_op(idx, good, torch.zeros(
+            (2, 2, 8, 4, 32), dtype=torch.bfloat16, device=cuda)[..., ::2])
+    odd = torch.zeros((2, 2, 8, 1, 3), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        gather_ops.block_gather_op(idx, odd, odd)
+    assert gather_ops.block_gather_op.launches == before
+
+
+def _kmeans_case(cuda, S, n, d, k):
+    g = torch.Generator(device=cuda).manual_seed(n * d + k)
     x = torch.randn((S, n, d), generator=g, device=cuda)
-    cent = x[:, :k].clone()
+    if k > n:
+        return x, torch.randn((S, k, d), generator=g, device=cuda)
+    return x, x[:, :k].clone()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,n,d,k", [
+    (4, 256, 32, 16), (2, 1000, 256, 70), (1, 64, 16, 1),
+    (3, 1000, 72, 70),          # n, d, k all off the 128 x 128 x 32 tiles
+    (2, 300, 8, 5),             # d below one dim chunk
+    (2, 50, 40, 7),             # n below one point tile
+    (1, 200, 30, 9),            # d % 4 != 0: the 4-byte copy path
+    (2, 700, 64, 1100),         # k > 1024: two passes of the order kernel
+])
+def test_cuda_kmeans_step_matches_twin(cuda, S, n, d, k):
+    """``kmeans_step_check``; the sums equal, bit for bit, the point-order
+    sums over the kernel's own assignments; two calls give the same bits."""
+    x, cent = _kmeans_case(cuda, S, n, d, k)
     before = kmeans_ops.kmeans_step.launches
     sums, counts, assign = kmeans_ops.kmeans_step(x, cent)
     torch.cuda.synchronize()
     assert kmeans_ops.kmeans_step.launches == before + 1
     res = kmeans_step_check(x, cent, sums, counts, assign)
     assert res["ok"], res
+    os_, oc = ordered_update_ref(x, assign, k)
+    assert torch.equal(sums, os_) and torch.equal(counts, oc)
+    again = kmeans_ops.kmeans_step(x, cent)
+    for a, b in zip(again, (sums, counts, assign)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 200])
+def test_cuda_kmeans_exact_ties_take_the_lowest_index(cuda, k):
+    """Duplicated centroids give exactly equal similarities: every point
+    goes to the lower index, within a tile and across centroid tiles
+    (k 200: columns 3 and 130); identical centroids all go to 0."""
+    x, cent = _kmeans_case(cuda, 2, 500, 64, k)
+    dup = {2: 5, 0: k - 1} if k == 8 else {3: 130, 0: 199, 64: 65}
+    for lo, hi in dup.items():
+        cent[:, hi] = cent[:, lo]
+    _, counts, assign = kmeans_ops.kmeans_step(x, cent)
+    for lo, hi in dup.items():
+        assert (assign != hi).all() and (counts[:, hi] == 0).all()
+        assert (counts[:, lo] > 0).any()
+    res = kmeans_step_check(x, cent, *kmeans_ops.kmeans_step(x, cent)[:2],
+                            assign)
+    assert res["ok"], res
+    same = torch.ones_like(cent)
+    _, counts, assign = kmeans_ops.kmeans_step(x, same)
+    assert (assign == 0).all() and (counts[:, 0] == 500).all()

@@ -120,3 +120,82 @@ def test_kmeans_step_check_catches_faults():
     assert not kmeans_step_check(x, c0, sums_m, counts, assign)["ok"]
     counts_m[0, 1] += 1
     assert not kmeans_step_check(x, c0, sums, counts_m, assign)["ok"]
+
+
+# ---- the plain models of the CUDA kernels' new pieces ----------------------
+
+@pytest.mark.parametrize("S,n,d,k", [(3, 1000, 72, 70), (2, 64, 16, 1),
+                                     (2, 50, 8, 7), (1, 300, 30, 1100)])
+def test_cluster_order_is_a_stable_permutation(S, n, d, k):
+    """The order the CUDA update sums in: every point once, clusters in
+    increasing id, points ascending within a cluster, and offsets that are
+    the exclusive prefix of the one-hot counts."""
+    from repro_torch.kernels.kmeans.ref import (cluster_order_ref,
+                                                kmeans_update_ref)
+    x = torch.from_numpy(np.random.default_rng(n + k).standard_normal(
+        (S, n, d)).astype(np.float32))
+    assign = torch.from_numpy(np.random.default_rng(k).integers(
+        0, k, (S, n)).astype(np.int32))
+    order, offsets = cluster_order_ref(assign, k)
+    _, counts = kmeans_update_ref(x, assign, k)
+    assert torch.equal(offsets[:, 1:] - offsets[:, :-1], counts.long())
+    assert (offsets[:, 0] == 0).all() and (offsets[:, -1] == n).all()
+    assert torch.equal(order.sort(dim=1).values,
+                       torch.arange(n).expand(S, n))
+    keys = assign.long().gather(1, order) * n + order   # (cluster, point)
+    assert (keys[:, 1:] > keys[:, :-1]).all()
+
+
+@pytest.mark.parametrize("S,n,d,k", [(3, 1000, 72, 70), (2, 64, 16, 1),
+                                     (4, 256, 32, 16), (2, 300, 8, 5)])
+def test_ordered_update_matches_one_hot_sums(S, n, d, k):
+    """The point-order sums (what the CUDA kernel adds, bit for bit)
+    against the reference's one-hot update and the port's twin: counts
+    exact, sums within 2 c u sum|x| per cluster of c points (two orders of
+    c f32 additions, each off by at most (c - 1) u sum|x|)."""
+    from repro_torch.kernels.kmeans.ref import (kmeans_update_ref,
+                                                ordered_update_ref)
+    x, c0 = _kmeans_inputs(S, n, d, k)
+    rs, rc, ra = (np.array(a) for a in ref_kmeans_step(jnp.asarray(x),
+                                                        jnp.asarray(c0)))
+    assign = torch.from_numpy(ra)
+    tx = torch.from_numpy(x)
+    sums, counts = ordered_update_ref(tx, assign, k)
+    np.testing.assert_array_equal(counts.numpy(), rc)
+    ts, tc = kmeans_update_ref(tx, assign, k)
+    assert torch.equal(tc, counts)
+    mag, _ = kmeans_update_ref(tx.abs(), assign, k)
+    tol = 2 * tc[..., None] * 2.0 ** -24 * mag
+    assert ((sums - ts).abs() <= tol).all()
+    assert (np.abs(sums.numpy() - rs) <= tol.numpy()).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cap,hd,chunk", [(16, 32, 8192), (33, 256, 8192),
+                                          (2, 4, 16), (4, 8, 48)])
+def test_gather_chunks_match_pallas_kernel(cap, hd, chunk, dtype):
+    """The CUDA kernel's chunking (one CTA per chunk of K or V, the last
+    chunk short, ids out of range zero-filled) in plain code: bit-exact
+    against the reference's kernel in interpret mode for ids in range, zeros
+    for the rest, and one chunk per CTA of the kernel's grid."""
+    from repro_torch.kernels.gather.ref import block_gather_chunked
+    rng = np.random.default_rng(cap * hd)
+    BH, M, r = 3, 12, 5
+    kst, vst = (np.asarray(jnp.asarray(
+        rng.standard_normal((BH, M, cap, hd)), jnp.dtype(dtype)))
+        for _ in range(2))
+    idx = rng.integers(0, M, (BH, r)).astype(np.int32)
+    ko, vo = ref_gather(jnp.asarray(idx)[None], jnp.asarray(kst)[None],
+                        jnp.asarray(vst)[None], interpret=True)
+    bad = idx.copy()
+    bad[0, 1], bad[2, 4] = -1, M
+    (pk, pv), ctas = block_gather_chunked(
+        torch.from_numpy(bad), *(tensor_from_numpy(a, "cpu")
+                                 for a in (kst, vst)), chunk)
+    esz = np.dtype(np.float32).itemsize if dtype == "float32" else 2
+    assert ctas == BH * r * 2 * -(-cap * hd * esz // chunk)
+    ok = torch.from_numpy(bad == idx)
+    for got, want in ((pk, ko), (pv, vo)):
+        want = torch.from_numpy(np.array(want[0], np.float32))
+        assert torch.equal(got.float()[ok], want[ok])
+        assert (got[~ok] == 0).all()
