@@ -13,8 +13,10 @@
    kernel, its 3xTF32 and f32 bounds, and the main path's plain Lloyd loop
    (``core/clustering.py::spherical_kmeans``) timed beside the op's loop;
 2c. holds both attention kernels against their twins at the decode shapes
-   of minitron-8b (8 KV heads, G 4, hd 128) and gemma3-1b (one KV head,
-   G 4, hd 256, window 512);
+   of minitron-8b (8 KV heads, G 4, hd 128), gemma3-1b (one KV head,
+   G 4, hd 256, window 512), mixtral-8x22b (G 6, hd 128, window 4096),
+   llava-next-34b (G 7, hd 128) and kimi-k2 (G 8, hd 128), the last three
+   timed, with their bounds and device durations;
 3. serves full-width gemma2-2b (bf16, random weights from a seed) through
    ``ServeEngine(attn_impl="fused")`` — chunked admission, the wave index,
    decode through the paged kernel and a decode-time flush — and checks the
@@ -67,7 +69,23 @@
    offload "fused", "pallas" and "jnp", 8 eager steps and 8 steps of a
    capturing plane (1 warm-up + 7 replays) from one copied state and one
    copied host plane give the same logits bits, ids and counters, and a
-   profiled replayed step launches 2 x 26 attention kernels (0 for jnp).
+   profiled replayed step launches 2 x 26 attention kernels (0 for jnp);
+11. serves mixtral-8x22b at full published width (8 experts top-2,
+   d_expert 16384, G 6, window 4096), depth cut 56 -> 8 layers, through
+   the paged kernel with chunked and then blocking admission (prompts of
+   16384 and 9000 tokens), times a captured launch against its bound,
+   breaks a decode step down (eager vs replay) with the MoE FFN's device
+   time per step (``moe_ffn_step``), holds replay == eager bit for bit for
+   "fused" and "pallas", and the reduced model card vs CPU;
+12. serves llava-next-34b at full published width (G 7), depth cut 60 ->
+   16 layers, with 2880 seeded bf16 patch embeddings a request
+   (``Request.extra``), chunked and blocking through the paged kernel and
+   one request through the gathered-buffer kernel, and holds blocking
+   against chunked first-token logits as phase 7 does;
+13. serves kimi-k2 at full published width (384 experts top-8, G 8,
+   vocab 163840), depth cut 61 -> 1 layer (the expert weights drawn one
+   expert at a time), one 4096-token prompt through the paged kernel, the
+   MoE FFN's device time per step, and the reduced model card vs CPU.
 
 Every serve run above decodes through ``ServeEngine``'s compiled stages:
 the first step of the run eagerly, the rest as replays of one captured
@@ -277,6 +295,10 @@ def merge_bound(args):
     return bound(nbytes, n_tok * 4 * G * hd + B * H * G * E * 2 * hd)
 
 
+BOUNDS = {"paged_wave_attention": kernel_bound,
+          "wave_attention_merge": merge_bound}
+
+
 def gather_bound(idx, k_store):
     """Block gather: read and write the r (cap, hd) blocks of K and V."""
     B, H, r = idx.shape
@@ -351,7 +373,8 @@ def device_ms(fn, key, reps=20, clean=False):
         else:
             scrub.fill_(1.0)
         fn()
-    rows = [(us, n) for us, name, n in _profile_rows(call, reps)[0]
+    rows = [(us, n) for us, name, n in _profile_rows(
+        call, reps, complete=lambda rows: _launch_count(rows, key) > 0)[0]
             if key in name]
     if not rows:
         raise AssertionError(f"profiler saw no kernel named *{key}*")
@@ -465,11 +488,14 @@ def kmeans_case(S=8, n=8192, d=256, k=512, iters=10, seed=0,
     res["bound_ms"], res["bound_by"], res["bound_f32_ms"] = \
         kmeans_bound(x, cent0)
     # the step's device time by kernel (four launches a step)
-    rows, _ = _profile_rows(lambda: kops.kmeans_step(x, cent0), 5)
+    four = ["assign_kernel", "normalize_kernel", "order_kernel",
+            "sums_kernel"]
+    rows, _ = _profile_rows(
+        lambda: kops.kmeans_step(x, cent0), 5,
+        complete=lambda rows: all(_launch_count(rows, k) == 5 for k in four))
     res["split_ms"] = {re.search(r"\w+_kernel", name).group(0): us / 5e3
                        for us, name, _ in rows}
-    if sorted(res["split_ms"]) != ["assign_kernel", "normalize_kernel",
-                                   "order_kernel", "sums_kernel"]:
+    if sorted(res["split_ms"]) != four:
         raise AssertionError(f"kmeans step launched {rows}")
     # the main path's own clustering loop (plain code) at the same shape,
     # against the op's loop, from the same initial centroids
@@ -585,15 +611,18 @@ def profiled_replay(graph, path, n_layers):
     """One more replay of a served step's graph under ``torch.profiler``:
     the device launches of the path's attention kernel (a split and a
     combine launch per layer, ``2 x n_layers``; none for the full
-    runtime), which the wrappers' counts cannot see."""
+    runtime), which the wrappers' counts cannot see. A session that sees
+    another count is profiled again (``_profile_rows``): the profiler now
+    and then loses some of the card's records."""
     import numpy as np
     import torch
     tag = KERNEL_TAGS.get(path)
+    want = 2 * n_layers if tag else 0
     with torch.inference_mode():
         rows, _ = _profile_rows(
-            lambda: graph.step(np.ones(graph.tokens.shape[0], bool)), 1)
-    n = sum(c for _, k, c in rows if tag and tag in k)
-    want = 2 * n_layers if tag else 0
+            lambda: graph.step(np.ones(graph.tokens.shape[0], bool)), 1,
+            complete=lambda rows: _launch_count(rows, tag) == want)
+    n = _launch_count(rows, tag)
     if n != want:
         raise AssertionError(f"a profiled replay launched {n} {path} "
                              f"kernels, want {want}")
@@ -690,12 +719,14 @@ IMPL_KERNEL = {"fused": "paged_wave_attention",
 def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
                     runtime="retro", admission="chunked", chunk=256,
                     batch=2, device="cuda", seed=0, min_capture_pos=4096,
-                    want_flush=True):
+                    want_flush=True, params=None, patches=0):
     """Drive the port's main path: ServeEngine with ``admission``
     ("chunked" or "blocking") and ``runtime`` ("retro": decode through
     ``attn_impl``, "fused" or "pallas"; "full": the dense cache, no kernel);
     every kernel's launch count is set to 0 just before and read just
-    after."""
+    after. ``params``: the model's (default: random from ``seed``);
+    ``patches`` > 0 gives each request seeded bf16 patch embeddings of its
+    first ``patches`` positions (vlm, ``Request.extra``)."""
     import numpy as np
     import torch
     from repro_torch.core import attention
@@ -704,16 +735,18 @@ def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Request, ServeEngine
 
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params = M.init_params(cfg, gen, device)
-    if device == "cuda":
-        torch.cuda.synchronize()
-    log(f"  params: {sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B "
-        f"in {time.perf_counter() - t0:.1f} s")
+    if params is None:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = M.init_params(cfg, gen, device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        log(f"  params: {sum(p.numel() for p in _leaves(params)) / 1e9:.3f}"
+            f" B in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(seed)
-    reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32), m)
-            for n, m in zip(prompt_lens, new_tokens)]
+    reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32), m,
+                    extra=patch_extra(cfg, patches, seed + i, device))
+            for i, (n, m) in enumerate(zip(prompt_lens, new_tokens))]
     engine = ServeEngine(cfg, params, prefill_chunk=chunk, device=device,
                          attn_impl=attn_impl, runtime=runtime,
                          admission=admission)
@@ -804,6 +837,18 @@ def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
     return res, cap.taken, engine
 
 
+def patch_extra(cfg, patches, seed, device="cuda"):
+    """A request's vlm extras: seeded normal bf16 patch embeddings (1, P,
+    d_model), the reference's stub vision tower; None for ``patches`` 0."""
+    import torch
+    if not patches:
+        return None
+    g = torch.Generator(device=device).manual_seed(1000 + seed)
+    return {"patch_embeds": torch.randn((1, patches, cfg.d_model),
+                                        generator=g, device=device)
+            .to(torch.bfloat16)}
+
+
 def compare_impls(engine, layer, max_ctx, seed=7):
     """The three decode-attention impls on clones of one layer's state as
     the serve run left it, with one random query: "pallas" vs "fused" in f32
@@ -863,16 +908,22 @@ def device_kernels(prof):
     return sorted(rows, reverse=True)
 
 
-def _profile_rows(fn, steps):
+PROFILER = dict(sessions=0, reruns=0)
+
+
+def _profile_rows(fn, steps, complete=None, tries=8):
     """``fn`` run ``steps`` times under ``torch.profiler``: (device kernel
-    rows, synced wall seconds). A session that records no device kernel at
-    all is run again, up to three sessions: in a process that has profiled
-    many times, one session in a while comes back without the card's
-    activity."""
+    rows, synced wall seconds). Now and then a session loses some or all
+    of the card's records, whatever the work, and a loss can run on for a
+    few sessions in a row. So a session that records no device kernel, or
+    whose rows ``complete`` rejects, is run again, up to ``tries`` sessions
+    (``PROFILER`` counts sessions and reruns). Rows that ``complete`` still
+    rejects after the last session are returned, for the caller's check to
+    refuse."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    tries = 3
     for attempt in range(tries):
+        PROFILER["sessions"] += 1
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      acc_events=True) as prof:
@@ -882,11 +933,23 @@ def _profile_rows(fn, steps):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         try:
-            return device_kernels(prof), wall
+            rows = device_kernels(prof)
         except AssertionError:
             if attempt == tries - 1:
                 raise
-            log("  (profiler session saw no device kernel; profiling again)")
+            rows = None
+        if rows is not None and (complete is None or complete(rows)
+                                 or attempt == tries - 1):
+            return rows, wall
+        PROFILER["reruns"] += 1
+        log(f"  (profiler session saw {sum(r[2] for r in rows or ())} device "
+            f"kernels, not all of them; profiling again)")
+
+
+def _launch_count(rows, tag):
+    """Device launches in ``rows`` of the kernels whose name holds ``tag``
+    (none for no tag)."""
+    return sum(c for _, k, c in rows if tag and tag in k)
 
 
 def step_breakdown(fn, steps=8):
@@ -1006,6 +1069,72 @@ def decode_breakdown(engine, steps=8, upcast_too=False):
     return res
 
 
+def moe_ffn_step(params, cfg, batch=2, steps=8, seed=12, device="cuda"):
+    """The MoE FFN of one decode step at ``batch`` tokens: every layer's
+    ``moe_apply`` on a seeded (batch, d_model) input, profiled over
+    ``steps`` steps: device ms per step (its kernels' durations), kernels
+    per step and the bytes bound. At decode every expert's capacity (C >= 8)
+    covers its tokens and the dropping MoE multiplies every expert's
+    buffer, so a step reads every expert's weights (and the routers)."""
+    import torch
+    from repro_torch.models.moe import expert_capacity, moe_apply
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((batch, cfg.d_model), generator=g, device=device) \
+        .to(params["layers"][0]["moe"]["w_up"].dtype)
+
+    def step():
+        for lp in params["layers"]:
+            moe_apply(lp["moe"], x, cfg.moe, cfg.act)
+    with torch.inference_mode():
+        step()
+        torch.cuda.synchronize()
+        rows, wall = _profile_rows(step, steps)
+    busy = sum(us for us, _, _ in rows) / 1e3 / steps
+    nbytes = sum(_nbytes(*lp["moe"].values()) for lp in params["layers"])
+    bound_ms, bound_by = bound(nbytes, 0)
+    res = dict(batch=batch, layers=cfg.n_layers,
+               capacity=expert_capacity(batch, cfg.moe),
+               device_ms_per_step=busy, synced_wall_ms_per_step=1e3 * wall
+               / steps, kernels_per_step=sum(r[2] for r in rows) / steps,
+               weight_gb=nbytes / 1e9, bound_ms=bound_ms, bound_by=bound_by,
+               top_kernels=[dict(name=k[:90], ms_per_step=us / 1e3 / steps)
+                            for us, k, _ in rows[:5]])
+    log(f"  MoE FFN of one decode step ({cfg.n_layers} layers, {batch} "
+        f"tokens, C {res['capacity']}): device {busy:.3f} ms (profiler), "
+        f"{res['kernels_per_step']:.0f} kernels; bound {bound_ms:.3f} ms "
+        f"({bound_by}: {res['weight_gb']:.2f} GB of expert and router "
+        f"weights)")
+    for k in res["top_kernels"][:3]:
+        log(f"    {k['ms_per_step']:8.3f} ms/step  {k['name']}")
+    return res
+
+
+def config_case(name, args, softcap, op, timed):
+    """``compare`` at a config's decode shape; ``timed``: also the kernel's
+    time, its bound and its device duration (profiler)."""
+    from repro_torch.kernels.wave_attention import ops
+    res = compare(name, args, softcap, op=op, time_it=timed)
+    if timed:
+        res["bound_ms"], res["bound_by"] = BOUNDS[op](args)
+        res["device_ms"] = device_ms(
+            lambda: getattr(ops, op)(*args, softcap=softcap),
+            KERNEL_TAGS[op])
+        log(f"    bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
+            f"device duration {res['device_ms']:.4f} ms (split + combine)")
+    return res
+
+
+def captured_launch(name, taken, kind, op="paged_wave_attention"):
+    """A served path's captured launch of layer kind ``kind`` against the
+    twin, timed, with its bound."""
+    layer, args, softcap = taken[kind][:3]
+    res = compare(f"{name}_captured_layer_{layer}", args, softcap, op=op,
+                  time_it=True)
+    res["bound_ms"], res["bound_by"] = BOUNDS[op](args)
+    log(f"    bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    return res
+
+
 def state_layout(state):
     """[layer, field, shape, stride, contiguous, device, storage offset] of
     every tensor of a serve state."""
@@ -1015,7 +1144,9 @@ def state_layout(state):
 
 
 def compiled_step_check(params, cfg, prompt_lens=(8192, 6000), steps=8,
-                        seed=11, device="cuda"):
+                        seed=11, device="cuda",
+                        paths=(("retro", ("fused", "pallas", "jnp")),
+                               ("full", ("jnp",)))):
     """Phase 10: full-width decode states from blocking prefills of
     ``prompt_lens``; for each of "fused", "pallas", "jnp" and the full
     runtime, the engine's captured step (``DecodeGraph``) from one state
@@ -1039,8 +1170,7 @@ def compiled_step_check(params, cfg, prompt_lens=(8192, 6000), steps=8,
     B = len(prompt_lens)
     act = np.ones(B, bool)
     out = {}
-    for runtime, impls in (("retro", ("fused", "pallas", "jnp")),
-                           ("full", ("jnp",))):
+    for runtime, impls in paths:
         eng = ServeEngine(cfg, params, runtime=runtime, device=device)
         plan = plan_zones(S, cfg.retro, eng.gen_headroom)
         with torch.inference_mode():
@@ -1075,15 +1205,17 @@ def compiled_step_check(params, cfg, prompt_lens=(8192, 6000), steps=8,
                 replay = [tuple(t.clone() for t in graph.step(act))
                           for _ in range(steps)]
                 torch.cuda.synchronize()
-                rows, _ = _profile_rows(lambda: graph.step(act), 1)
+                name = "full" if runtime == "full" else impl
+                tag = KERNEL_TAGS.get(IMPL_KERNEL.get(impl)) \
+                    if runtime == "retro" else None
+                want_attn = 2 * cfg.n_layers if tag else 0
+                rows, _ = _profile_rows(
+                    lambda: graph.step(act), 1, complete=lambda rows:
+                    _launch_count(rows, tag) == want_attn)
             same = all(torch.equal(a[0], b[0]) for a, b in zip(eager, replay))
             ids = all(torch.equal(a[1], b[1]) for a, b in zip(eager, replay))
             finite = all(torch.isfinite(a[0]).all() for a in replay)
-            name = "full" if runtime == "full" else impl
-            tag = KERNEL_TAGS.get(IMPL_KERNEL.get(impl)) \
-                if runtime == "retro" else None
-            n_attn = sum(c for _, k, c in rows if tag and tag in k)
-            want_attn = 2 * cfg.n_layers if tag else 0
+            n_attn = _launch_count(rows, tag)
             out[name] = dict(bit_identical=same, ids_equal=ids,
                              captures=graph.captures, replays=graph.replays,
                              kernels_per_replay=sum(r[2] for r in rows),
@@ -1115,16 +1247,17 @@ def _leaves(tree):
 
 
 def reduced_across_devices(attn_impl, runtime="retro", admission="chunked",
-                           seed=0, device="cuda"):
-    """The reduced model on the card (kernel) vs on the CPU (twin): chunked
-    or blocking prefill of two ragged prompts, then six decode steps under
-    ``runtime`` (retro: through ``attn_impl``); logits agree."""
+                           seed=0, device="cuda", arch="gemma2_2b"):
+    """The reduced model of ``arch`` on the card (kernel) vs on the CPU
+    (twin): chunked or blocking prefill of two ragged prompts, then six
+    decode steps under ``runtime`` (retro: through ``attn_impl``); logits
+    agree."""
     import numpy as np
     import torch
-    from repro_torch.configs.gemma2_2b import reduced
+    from repro_torch.configs.registry import reduced_config
     from repro_torch.core.zones import plan_zones
     from repro_torch.models import model as M
-    cfg = reduced()
+    cfg = reduced_config(arch)
     cpu = M.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
     to = lambda t: {k: to(v) for k, v in t.items()} if isinstance(t, dict) \
         else [to(v) for v in t] if isinstance(t, list) \
@@ -1173,7 +1306,7 @@ def reduced_across_devices(attn_impl, runtime="retro", admission="chunked",
             logits += decode(st, slice(b, b + 1))
         runs[dev] = torch.stack(logits)
     err = (runs[device] - runs["cpu"]).abs().max().item()
-    log(f"  reduced gemma2-2b ({runtime}, {admission} admission"
+    log(f"  reduced {cfg.arch_id} ({runtime}, {admission} admission"
         f"{', ' + attn_impl if runtime == 'retro' else ''}), card vs cpu "
         f"logits: max|d| {err:.3e} (tol 1e-3)")
     if not torch.isfinite(runs[device]).all() or err > 1e-3:
@@ -1454,7 +1587,6 @@ def offload_step_stats(plane, state, tokens, steps=8):
     (busy share over the profiled wall)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     active = np.ones(plane.B, bool)
     tm = plane.timing
     keys = [k for _, k in OFFLOAD_TIMES] + ["h2d_bytes"]
@@ -1470,14 +1602,8 @@ def offload_step_stats(plane, state, tokens, steps=8):
         torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
     per = {k: (tm[k] - before[k]) / steps for k in keys}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            plane.decode_step(state, tokens, active)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    rows = device_kernels(prof)
+    rows, prof_wall = _profile_rows(
+        lambda: plane.decode_step(state, tokens, active), steps)
     busy_s = sum(r[0] for r in rows) / 1e6
     host_ms = 1e3 * sum(host) / steps
     res = dict(step_host_ms=host_ms, step_wall_ms=1e3 * sum(wall) / steps)
@@ -1521,11 +1647,12 @@ def offload_breakdown(engine, state, max_ctx, steps=8):
                                           steps)
         del eager, eager_state
         res["replay"] = offload_step_stats(plane, state, tokens, steps)
+        tag = KERNEL_TAGS[IMPL_KERNEL[engine.attn_impl]]
+        want = 2 * engine.cfg.n_layers
         rows, _ = _profile_rows(
             lambda: plane.decode_step(state, tokens, np.ones(plane.B, bool)),
-            1)
-    tag = KERNEL_TAGS[IMPL_KERNEL[engine.attn_impl]]
-    n = sum(c for _, k, c in rows if tag in k)
+            1, complete=lambda rows: _launch_count(rows, tag) == want)
+    n = _launch_count(rows, tag)
     res["profiled_replay"] = dict(attention_launches=n,
                                   kernels=sum(r[2] for r in rows))
     for name in ("eager", "replay"):
@@ -1584,16 +1711,18 @@ def compiled_offload_check(engine, state, max_ctx, steps=8):
                     runs[capture] = (p, st, tok, seq, plane_counters(p),
                                      p.stage.replays)
                 p, st, tok = runs[True][:3]
+                tag = KERNEL_TAGS.get(IMPL_KERNEL.get(impl))
+                want_attn = 2 * engine.cfg.n_layers if tag else 0
                 rows, _ = _profile_rows(
-                    lambda: p.decode_step(st, tok, active), 1)
+                    lambda: p.decode_step(st, tok, active), 1,
+                    complete=lambda rows:
+                    _launch_count(rows, tag) == want_attn)
             (pe, _, _, eager, ce, _), (pg, _, _, replay, cg, replays) = \
                 runs[False], runs[True]
             same = all(torch.equal(a[0], b[0]) for a, b in zip(eager, replay))
             ids = all(torch.equal(a[1], b[1]) for a, b in zip(eager, replay))
             finite = all(torch.isfinite(a[0]).all() for a in replay)
-            tag = KERNEL_TAGS.get(IMPL_KERNEL.get(impl))
-            n_attn = sum(c for _, k, c in rows if tag and tag in k)
-            want_attn = 2 * engine.cfg.n_layers if tag else 0
+            n_attn = _launch_count(rows, tag)
             name = "offload_" + impl
             out[name] = dict(
                 bit_identical=same, ids_equal=ids, counters_equal=ce == cg,
@@ -1713,16 +1842,23 @@ def reduced_offload_across_devices(attn_impl, seed=0, device="cuda"):
 # the other dense configs' decode shapes
 # ---------------------------------------------------------------------------
 
+CONFIG_CASES = ("minitron_8b", "gemma3_1b", "mixtral_8x22b",
+                "llava_next_34b", "kimi_k2_1t_a32b")
+TIMED_CASES = ("mixtral_8x22b", "llava_next_34b", "kimi_k2_1t_a32b")
+
+
 def config_decode_cases(ctx=8192, gen_headroom=1024):
     """(name, kwargs of ``ref.random_decode_inputs``, kwargs of
     ``ref.random_merge_inputs``, softcap) at the decode shapes of the other
-    dense configs at full width, a ``ctx``-token context, their RetroConfig:
-    minitron-8b (8 KV heads, G 4, hd 128, no softcap or window) and
-    gemma3-1b (one KV head, G 4, hd 256, window 512)."""
+    configs at full width, a ``ctx``-token context, their RetroConfig:
+    minitron-8b (8 KV heads, G 4, hd 128, no softcap or window), gemma3-1b
+    (one KV head, G 4, hd 256, window 512), mixtral-8x22b (8 KV heads, G 6,
+    hd 128, window 4096), llava-next-34b (8 KV heads, G 7, hd 128) and
+    kimi-k2 (8 KV heads, G 8, hd 128)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.zones import plan_zones
     out = []
-    for arch in ("minitron_8b", "gemma3_1b"):
+    for arch in CONFIG_CASES:
         cfg = get_config(arch)
         a, retro = cfg.attn, cfg.retro
         plan = plan_zones(ctx, retro, gen_headroom)
@@ -1810,18 +1946,20 @@ def build_bit_check(params, cfg, n=9000, chunk=256, seed=3,
 
 
 def blocking_vs_chunked_logits(params, cfg, n=9000, chunk=256, seed=4,
-                               gen_headroom=1024, device="cuda"):
+                               gen_headroom=1024, device="cuda", patches=0):
     """First-token logits of one ``n``-token prompt through blocking
     admission (``apply_prefill``: flash attention, online softmax) and
     through chunked admission (exact chunk attention). Both compute the
     attention in f32 and round its output to the model dtype, at other
     places; in bf16 a one-ulp difference in the residual stream grows
-    through the 26 layers of a random-weight model, so the bf16 run must
+    through the layers of a random-weight model, so the bf16 run must
     give the same greedy token (the reference's own criterion,
     tests/test_system.py:141) and its distance from the bf16 tolerance
     3e-2 (1 + |chunked|) is reported. The algorithms are held at full
     width in f32 (weights from the same seed): elementwise within
-    1e-3 (1 + |chunked|)."""
+    1e-3 (1 + |chunked|). ``patches`` > 0: the prompt's first
+    ``patches`` positions take seeded bf16 patch embeddings (vlm), handed
+    whole to the prefill and to every chunk."""
     import numpy as np
     import torch
     from repro_torch.core.zones import plan_zones
@@ -1829,11 +1967,12 @@ def blocking_vs_chunked_logits(params, cfg, n=9000, chunk=256, seed=4,
     toks = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab, (1, n)).astype(np.int64)).to(device)
     plan = plan_zones(n, cfg.retro, gen_headroom)
+    extra = patch_extra(cfg, patches, seed, device) or {}
 
     def both(params, cfg):
         with torch.inference_mode():
             blk, st = M.apply_prefill(
-                params, cfg, {"tokens": toks}, plan=plan,
+                params, cfg, {"tokens": toks, **extra}, plan=plan,
                 gen_headroom=gen_headroom,
                 lengths=torch.tensor([n], device=device))
             del st
@@ -1845,7 +1984,7 @@ def blocking_vs_chunked_logits(params, cfg, n=9000, chunk=256, seed=4,
                 t = torch.zeros((1, chunk), dtype=toks.dtype, device=device)
                 t[:, :c] = toks[:, c0:c0 + c]
                 chk, cs = M.apply_prefill_chunk(
-                    params, cfg, {"tokens": t}, cs,
+                    params, cfg, {"tokens": t, **extra}, cs,
                     chunk_lens=torch.tensor([c], device=device))
             del cs
         d = (blk - chk).abs()
@@ -1861,12 +2000,14 @@ def blocking_vs_chunked_logits(params, cfg, n=9000, chunk=256, seed=4,
     del params32
     excess32 = ((blk32 - chk32).abs()
                 - 1e-3 * (1 + chk32.abs())).max().item()
-    res = dict(prompt=n, bf16_max_abs_diff=d16, bf16_excess_over_3e_2=excess16,
+    res = dict(prompt=n, patches=patches, bf16_max_abs_diff=d16,
+               bf16_excess_over_3e_2=excess16,
                bf16_same_argmax=same, f32_max_abs_diff=d32,
                f32_excess_over_1e_3=excess32,
                f32_same_argmax=bool((blk32.argmax(-1)
                                      == chk32.argmax(-1)).all()))
-    log(f"  blocking vs chunked first-token logits ({n} tokens): bf16 max|d| "
+    log(f"  blocking vs chunked first-token logits ({n} tokens, {patches} "
+        f"patch positions, {cfg.n_layers} layers): bf16 max|d| "
         f"{d16:.3e} (excess over 3e-2 (1 + |chunked|): {excess16:.3e}), "
         f"same argmax {same}; f32 max|d| {d32:.3e} (excess over "
         f"1e-3 (1 + |chunked|): {excess32:.3e})")
@@ -2055,13 +2196,22 @@ def main(argv=None):
             time_it=name == "merge_full_width_bf16"))
         del args
     log("phase 2c: both attention kernels vs twins at the decode shapes of "
-        "minitron-8b and gemma3-1b (8192-token context)")
+        "minitron-8b and gemma3-1b (G 4), mixtral-8x22b (G 6), "
+        "llava-next-34b (G 7) and kimi-k2 (G 8) (8192-token context; the "
+        "last three timed)")
+    group_cases = {}
     for name, paged_kw, merge_kw, softcap in config_decode_cases():
+        timed = name.removesuffix("_decode") in TIMED_CASES
         args = random_decode_inputs(device="cuda", **paged_kw)
-        results["paged_wave_attention"].append(compare(name, args, softcap))
+        res = config_case(name, args, softcap, "paged_wave_attention", timed)
+        results["paged_wave_attention"].append(res)
         args = random_merge_inputs(device="cuda", **merge_kw)
-        results["wave_attention_merge"].append(compare(
-            "merge_" + name, args, softcap, op="wave_attention_merge"))
+        mres = config_case("merge_" + name, args, softcap,
+                           "wave_attention_merge", timed)
+        results["wave_attention_merge"].append(mres)
+        if timed:
+            group_cases[name] = dict(G=paged_kw["G"], hd=paged_kw["hd"],
+                                     paged=res, merge=mres)
         del args
     results["block_gather"].append(gather_case())
     kmeans = kmeans_case()
@@ -2241,17 +2391,11 @@ def main(argv=None):
     serve9, taken9, engine9 = serve_main_path(
         MINITRON, prompt_lens9, (32, 24), attn_impl="fused",
         want_flush=False)
-    layer, args, softcap = taken9["g"]
-    minitron_launch = compare(f"minitron_captured_global_layer_{layer}",
-                              args, softcap, time_it=True)
-    minitron_launch["bound_ms"], minitron_launch["bound_by"] = \
-        kernel_bound(args)
-    log(f"    bound {minitron_launch['bound_ms']:.4f} ms "
-        f"({minitron_launch['bound_by']})")
+    minitron_launch = captured_launch("minitron", taken9, "g")
     results["paged_wave_attention"].append(minitron_launch)
     log("  decode-step breakdown (after the run, both slots decoding)")
     breakdown9 = decode_breakdown(engine9)
-    del taken9, args, engine9
+    del taken9, engine9
     torch.cuda.empty_cache()
 
     # ---- phase 10: the compiled decode stage, eager vs replay ---------------
@@ -2264,6 +2408,106 @@ def main(argv=None):
     compiled.update(compiled_offload)
     del params10
     torch.cuda.empty_cache()
+
+    # ---- phase 11: mixtral-8x22b --------------------------------------------
+    from repro_torch.configs.kimi_k2_1t_a32b import CONFIG as KIMI
+    from repro_torch.configs.llava_next_34b import CONFIG as LLAVA
+    from repro_torch.configs.mixtral_8x22b import CONFIG as MIXTRAL
+    mixtral = MIXTRAL.replace(n_layers=8)
+    log("phase 11: serve mixtral-8x22b at full published width (d_model "
+        "6144, 48/8 heads, hd 128, 8 experts top-2, d_expert 16384, window "
+        "4096) through attn_impl='fused'; depth cut 56 -> 8 layers (one "
+        "card), chunked then blocking admission")
+    lens11, news11 = (16384, 9000), (64, 32)
+    serve11, taken11, engine11 = serve_main_path(
+        mixtral, lens11, news11, attn_impl="fused", want_flush=False)
+    mixtral_launch = captured_launch("mixtral", taken11, "l")
+    results["paged_wave_attention"].append(mixtral_launch)
+    del taken11
+    log("  decode-step breakdown (after the run, both slots decoding)")
+    breakdown11 = decode_breakdown(engine11)
+    params11 = engine11.params
+    del engine11
+    torch.cuda.empty_cache()
+    moe11 = moe_ffn_step(params11, mixtral)
+    serve11b, _, engine11 = serve_main_path(
+        mixtral, lens11, news11, attn_impl="fused", admission="blocking",
+        want_flush=False, params=params11)
+    del engine11
+    torch.cuda.empty_cache()
+    log("  the compiled decode stage at mixtral's width: eager vs replayed "
+        "steps (fused, pallas)")
+    compiled11 = compiled_step_check(
+        params11, mixtral, paths=(("retro", ("fused", "pallas")),))
+    del params11
+    torch.cuda.empty_cache()
+    red11 = reduced_across_devices("fused", arch="mixtral_8x22b")
+
+    # ---- phase 12: llava-next-34b -------------------------------------------
+    llava = LLAVA.replace(n_layers=16)
+    patches = llava.num_patch_tokens
+    log(f"phase 12: serve llava-next-34b at full published width (d_model "
+        f"7168, 56/8 heads, hd 128, d_ff 20480) with {patches} seeded bf16 "
+        f"patch embeddings a request, through attn_impl='fused' (chunked, "
+        f"blocking) and 'pallas' (one request); depth cut 60 -> 16 layers")
+    lens12, news12 = (8192, 6000), (32, 24)
+    serve12, taken12, engine12 = serve_main_path(
+        llava, lens12, news12, attn_impl="fused", want_flush=False,
+        patches=patches)
+    llava_launch = captured_launch("llava", taken12, "g")
+    results["paged_wave_attention"].append(llava_launch)
+    del taken12
+    log("  decode-step breakdown (after the run, both slots decoding)")
+    breakdown12 = decode_breakdown(engine12)
+    params12 = engine12.params
+    del engine12
+    torch.cuda.empty_cache()
+    serve12b, _, engine12 = serve_main_path(
+        llava, lens12, news12, attn_impl="fused", admission="blocking",
+        want_flush=False, params=params12, patches=patches)
+    del engine12
+    torch.cuda.empty_cache()
+    serve12p, taken12p, engine12 = serve_main_path(
+        llava, lens12[:1], (16,), attn_impl="pallas", batch=1,
+        want_flush=False, params=params12, patches=patches)
+    llava_merge = captured_launch("llava_merge", taken12p, "g",
+                                  op="wave_attention_merge")
+    results["wave_attention_merge"].append(llava_merge)
+    del taken12p, engine12
+    torch.cuda.empty_cache()
+    blk_vs_chk12 = blocking_vs_chunked_logits(params12, llava, n=8192,
+                                              patches=patches)
+    del params12
+    torch.cuda.empty_cache()
+
+    # ---- phase 13: kimi-k2 -------------------------------------------------
+    kimi = KIMI.replace(n_layers=1)
+    log("phase 13: serve kimi-k2 at full published width (d_model 7168, "
+        "64/8 heads, hd 128, 384 experts top-8, d_expert 2048, vocab "
+        "163840) through attn_impl='fused'; depth cut 61 -> 1 layer")
+    serve13, taken13, engine13 = serve_main_path(
+        kimi, (4096,), (16,), attn_impl="fused", batch=1, want_flush=False,
+        min_capture_pos=2048)
+    kimi_launch = captured_launch("kimi", taken13, "g")
+    results["paged_wave_attention"].append(kimi_launch)
+    del taken13
+    params13 = engine13.params
+    del engine13
+    torch.cuda.empty_cache()
+    moe13 = moe_ffn_step(params13, kimi, batch=1)
+    del params13
+    torch.cuda.empty_cache()
+    red13 = reduced_across_devices("fused", arch="kimi_k2_1t_a32b")
+    for name, r in (("mixtral chunked, phase 11", serve11),
+                    ("mixtral blocking, phase 11", serve11b),
+                    ("llava chunked, phase 12", serve12),
+                    ("llava blocking, phase 12", serve12b),
+                    ("llava pallas, phase 12", serve12p),
+                    ("kimi chunked, phase 13", serve13)):
+        log(f"  {name}: decode {r['decode_tps']:.2f} tok/s, ITL p50/p99 "
+            f"{r['itl_p50_ms']:.2f}/{r['itl_p99_ms']:.2f} ms, TTFT s "
+            f"{['%.2f' % t for t in r['ttft_s']]}, peak "
+            f"{r['peak_mem_gib']:.2f} GiB")
 
     # the kernel line: launches on the path that runs the kernel (the serve
     # run of its impl; for the two kernels no serving path calls, one call
@@ -2282,8 +2526,14 @@ def main(argv=None):
         blocking_fused=serve7["launches"],
         sparse_prefill_fused=sparse["launches"],
         minitron_fused=serve9["launches"],
-        full=sum(r["launches"] for r in serve8.values())),
-        wave_attention_merge=dict(pallas=serve5["launches"]))
+        full=sum(r["launches"] for r in serve8.values()),
+        mixtral_fused=serve11["launches"],
+        mixtral_blocking_fused=serve11b["launches"],
+        llava_fused=serve12["launches"],
+        llava_blocking_fused=serve12b["launches"],
+        kimi_fused=serve13["launches"]),
+        wave_attention_merge=dict(pallas=serve5["launches"],
+                                  llava_pallas=serve12p["launches"]))
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = timed[name]
@@ -2301,11 +2551,14 @@ def main(argv=None):
             **{key: t[key] for key in ("bound_f32_ms", "device_ms",
                                        "device_ms_clean_l2") if key in t}))
     script_s = time.perf_counter() - t_script
+    log(f"profiler: {PROFILER['sessions']} sessions, {PROFILER['reruns']} "
+        f"run again for records the profiler lost")
     log(f"script {script_s:.1f} s")
     if opts.json is not None:
         opts.json.parent.mkdir(parents=True, exist_ok=True)
         opts.json.write_text(json.dumps(dict(
             card=card, build_s=build_s, script_s=script_s, cases=results, serve=serve,
+            profiler=PROFILER,
             decode_breakdown=breakdown, reduced_card_vs_cpu_err=red_err,
             serve_pallas=serve5, decode_breakdown_pallas=breakdown5,
             impls=impls, serve_offload=serve6,
@@ -2320,7 +2573,17 @@ def main(argv=None):
             sparse_prefill=sparse, serve_full=serve8,
             decode_breakdown_full=breakdown8, full_attention_check=full_check,
             serve_minitron=serve9, minitron_launch=minitron_launch,
-            kernels=kernels),
+            group_size_cases=group_cases, serve_mixtral=serve11,
+            serve_mixtral_blocking=serve11b, mixtral_launch=mixtral_launch,
+            decode_breakdown_mixtral=breakdown11, moe_ffn_mixtral=moe11,
+            compiled_step_mixtral=compiled11,
+            reduced_mixtral_card_vs_cpu=red11, serve_llava=serve12,
+            serve_llava_blocking=serve12b, serve_llava_pallas=serve12p,
+            llava_launch=llava_launch, llava_merge_launch=llava_merge,
+            decode_breakdown_llava=breakdown12,
+            llava_blocking_vs_chunked=blk_vs_chk12, serve_kimi=serve13,
+            kimi_launch=kimi_launch, moe_ffn_kimi=moe13,
+            reduced_kimi_card_vs_cpu=red13, kernels=kernels),
             indent=1))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,16 @@ class AttnConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_expert: int                            # per-expert FFN hidden size
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
 class RetroConfig:
     """Wave-index geometry (paper Sec. 4.2, 5.1 defaults)."""
     avg_cluster: int = 16                    # 1 centroid per 16 tokens
@@ -69,13 +79,16 @@ class ModelConfig:
     d_ff: int
     vocab: int
     attn: Optional[AttnConfig] = None
-    moe: Optional[object] = None             # MoEConfig: not ported yet
+    moe: Optional[MoEConfig] = None          # moe family: the expert FFN
     ssm: Optional[object] = None             # SSMConfig: not ported yet
     shared_attn_every: int = 0
     encoder_layers: int = 0
     encoder_frames: int = 1500
+    # vlm: number of stub patch-embedding tokens prepended to the text prompt
     num_patch_tokens: int = 0
     act: str = "silu"                        # "silu" | "gelu" (tanh approx)
+    # MoE dispatch groups: each group of tokens is routed and packed on its
+    # own (1 = one global dispatch)
     moe_dispatch_groups: int = 1
     sparse_prefill_blocks: int = 0
     tie_embeddings: bool = True

@@ -1,6 +1,7 @@
 """Architecture registry. Port of ``repro/configs/registry.py`` without JAX:
-the port has the four ``family="dense"`` configs (gemma2-2b, gemma2-9b,
-gemma3-1b, minitron-8b); the moe/ssm/hybrid/vlm/audio configs and
+the port has the attention families' configs — dense (gemma2-2b, gemma2-9b,
+gemma3-1b, minitron-8b), moe (mixtral-8x22b, kimi-k2-1t-a32b) and vlm
+(llava-next-34b); the ssm/hybrid/audio configs and
 ``input_specs``/``materialize_batch`` are not ported yet."""
 from __future__ import annotations
 
@@ -13,6 +14,9 @@ ALIASES = {
     "gemma2-9b": "gemma2_9b",
     "minitron-8b": "minitron_8b",
     "gemma2-2b": "gemma2_2b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "llava-next-34b": "llava_next_34b",
 }
 
 

@@ -51,6 +51,7 @@ constexpr int NT = 128;          // threads per split block
 constexpr int NWARP = NT / 32;
 constexpr int TILE = 32;         // tokens (estimation entries) per tile
 constexpr int HD_MAX = 256;
+constexpr int MAX_G = 8;         // query heads per KV head, at most
 constexpr int PER_THREAD = 8;    // f32 accumulators per query head per thread
 constexpr int MAX_TPS = 8;       // tiles per split, at most
 constexpr int NSTAGE = 2;        // depth of the cp.async ring
@@ -609,6 +610,7 @@ inline cudaError_t make_common(Common& c, const void* q, const void* est_logit,
                                float softcap, int use_softcap) {
   if (hd <= 0 || hd > HD_MAX || hd % 8 != 0 || ((hd / 8) & (hd / 8 - 1)) != 0)
     return cudaErrorInvalidValue;
+  if (G < 1 || G > MAX_G) return cudaErrorInvalidValue;
   if (E < 0 || n_tiles < 0 || tps < 1 || tps > MAX_TPS)
     return cudaErrorInvalidValue;
   c.q = static_cast<const float*>(q);
@@ -625,7 +627,9 @@ inline cudaError_t make_common(Common& c, const void* q, const void* est_logit,
   return cudaSuccess;
 }
 
-// Dispatch on the storage dtype (0 = f32, 1 = bf16) and G.
+// Dispatch on the storage dtype (0 = f32, 1 = bf16) and G in 1..MAX_G. Every
+// piece is generic in G: the per-warp head loops stride by NWARP, the combine
+// grid is rows * G, and the static shared memory grows linearly (G 8: 18 KB).
 template <template <typename> class Src, typename Make>
 cudaError_t dispatch(int store_dtype, int G, const Common& c, Make make,
                      cudaStream_t stream) {
@@ -633,7 +637,11 @@ cudaError_t dispatch(int store_dtype, int G, const Common& c, Make make,
   switch (G) {                                                             \
     case 1: return run<Src<KV>, KV, 1>(make(KV()), c, stream);             \
     case 2: return run<Src<KV>, KV, 2>(make(KV()), c, stream);             \
+    case 3: return run<Src<KV>, KV, 3>(make(KV()), c, stream);             \
     case 4: return run<Src<KV>, KV, 4>(make(KV()), c, stream);             \
+    case 5: return run<Src<KV>, KV, 5>(make(KV()), c, stream);             \
+    case 6: return run<Src<KV>, KV, 6>(make(KV()), c, stream);             \
+    case 7: return run<Src<KV>, KV, 7>(make(KV()), c, stream);             \
     case 8: return run<Src<KV>, KV, 8>(make(KV()), c, stream);             \
     default: return cudaErrorInvalidValue;                                 \
   }

@@ -44,6 +44,7 @@ _FLAT_ORDER = ("idx_r", "rowb", "live", "qg", "sink_k", "sink_v", "local_k",
 # the split plan (csrc/wave_fold.cuh: TILE, MAX_TPS)
 TILE = 32                      # tokens (estimation entries) per tile
 MAX_TPS = 8                    # tiles per split, at most
+MAX_G = 8                      # query heads per KV head, at most
 TARGET_BLOCKS = 4 * 132        # four blocks for each of the H100's SMs
 
 
@@ -169,8 +170,8 @@ def wave_attention_merge(qg, k_exec, v_exec, valid, est_logit, cs_e, vs_e, *,
     _check_merge(*args)
     B, H, G, hd = qg.shape
     T, E = k_exec.shape[2], vs_e.shape[2]
-    if G not in (1, 2, 4, 8):
-        raise ValueError(f"kernel takes G in (1, 2, 4, 8), got {G}")
+    if not 1 <= G <= MAX_G:
+        raise ValueError(f"kernel takes G in 1..{MAX_G}, got {G}")
     if hd > 256 or hd % 8 or (hd // 8) & (hd // 8 - 1):
         raise ValueError(f"kernel takes hd = 8 * 2^k <= 256, got {hd}")
     for name, t in (("k_exec", k_exec), ("v_exec", v_exec)):
@@ -272,8 +273,8 @@ def paged_wave_attention(qg, sink_k, sink_v, local_k, local_v, local_pos,
         raise ValueError(f"unsupported device {dev}")
     flat = _flatten(args)
     B, H, G, hd = qg.shape
-    if G not in (1, 2, 4, 8):
-        raise ValueError(f"kernel takes G in (1, 2, 4, 8), got {G}")
+    if not 1 <= G <= MAX_G:
+        raise ValueError(f"kernel takes G in 1..{MAX_G}, got {G}")
     if hd > 256 or hd % 8 or (hd // 8) & (hd // 8 - 1):
         raise ValueError(f"kernel takes hd = 8 * 2^k <= 256, got {hd}")
     for name in ("sink_k", "sink_v", "local_k", "local_v", "k_store",

@@ -23,8 +23,10 @@ from repro_torch.serving.engine import Request, ServeEngine
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma2_2b",
-                    help="gemma2_2b, gemma2_9b, gemma3_1b or minitron_8b "
-                         "(or their dashed names)")
+                    help="gemma2_2b, gemma2_9b, gemma3_1b, minitron_8b, "
+                         "mixtral_8x22b, kimi_k2_1t_a32b or llava_next_34b "
+                         "(or their dashed names); llava is served without "
+                         "patch embeddings, as by the reference's launcher")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--runtime", default="retro", choices=["retro", "full"])

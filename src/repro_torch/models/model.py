@@ -1,10 +1,12 @@
-"""Model API used by the serve engine. Port of ``repro/models/model.py``,
-dense family, both serve runtimes ("retro": the wave index; "full": a
-dense KV cache), blocking and chunked admission:
+"""Model API used by the serve engine. Port of ``repro/models/model.py``
+for the attention families (dense, moe, vlm), both serve runtimes
+("retro": the wave index; "full": a dense KV cache), blocking and chunked
+admission:
 
     params      = init_params(cfg, generator, device)
-    logits, st  = apply_prefill(params, cfg, {"tokens": ...}, runtime=...,
-                                lengths=..., cache_len=...)
+    logits, st  = apply_prefill(params, cfg, {"tokens": ...,
+                                              "patch_embeds": ...},
+                                runtime=..., lengths=..., cache_len=...)
     cs          = make_prefill_chunk_state(cfg, B, max_ctx, chunk=C,
                                            runtime=..., device=...)
     logits, cs  = apply_prefill_chunk(params, cfg, {"tokens": ...}, cs, ...)
@@ -15,7 +17,10 @@ dense KV cache), blocking and chunked admission:
     state       = make_serve_state(cfg, B, seq_len, runtime=..., device=...)
     supports_offload(cfg, runtime), offload_decode_fns(cfg)  # host offload
 
-The moe, vlm and non-attention families raise ``NotImplementedError``.
+``batch`` keys: tokens (B, T) int; patch_embeds (B, P, D) for vlm (in
+every chunk's batch of a chunked admission: the chunk takes the slice at
+its positions). The non-attention families (ssm, hybrid, audio) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,21 +34,21 @@ from repro_torch.core.wave_index import flush_segment
 from repro_torch.core.zones import ZonePlan, plan_zones
 from repro_torch.models import transformer
 
-PORTED_FAMILIES = ("dense",)
+ATTN_FAMILIES = ("dense", "moe", "vlm")
 
 
-def _dense_only(cfg: ModelConfig):
-    if cfg.family not in PORTED_FAMILIES:
+def _attention_family(cfg: ModelConfig):
+    if cfg.family not in ATTN_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ported: "
-            f"{PORTED_FAMILIES})")
+            f"{ATTN_FAMILIES})")
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None):
     """Random parameters on ``device`` (default ``cuda``). ``generator``
     defaults to one on that device seeded with 0."""
-    _dense_only(cfg)
+    _attention_family(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -56,22 +61,23 @@ def apply_prefill(params, cfg: ModelConfig, batch, *, runtime: str = "retro",
     """Blocking admission: the whole right-padded prompt ``batch['tokens']``
     (B, T) in one pass. ``lengths``: optional (B,) true prompt lengths.
     ``cache_len``: the full runtime's dense-cache capacity."""
-    _dense_only(cfg)
-    return transformer.prefill(params, cfg, batch["tokens"], runtime=runtime,
+    _attention_family(cfg)
+    return transformer.prefill(params, cfg, batch["tokens"],
+                               batch.get("patch_embeds"), runtime=runtime,
                                plan=plan, gen_headroom=gen_headroom,
                                lengths=lengths, cache_len=cache_len)
 
 
 def supports_chunked_prefill(cfg: ModelConfig, runtime: str = "retro") -> bool:
     """Chunked admission exists for the attention families under both
-    runtimes (the port has the dense one)."""
-    return cfg.family in PORTED_FAMILIES
+    runtimes."""
+    return cfg.family in ATTN_FAMILIES
 
 
 def make_prefill_chunk_state(cfg: ModelConfig, B: int, max_ctx: int, *,
                              runtime: str = "retro", chunk: int,
                              gen_headroom: int = 4096, device=None):
-    _dense_only(cfg)
+    _attention_family(cfg)
     return transformer.init_prefill_chunk_state(
         cfg, B, max_ctx, runtime=runtime, chunk=chunk,
         gen_headroom=gen_headroom, device=resolve_device(device))
@@ -79,15 +85,17 @@ def make_prefill_chunk_state(cfg: ModelConfig, B: int, max_ctx: int, *,
 
 def apply_prefill_chunk(params, cfg: ModelConfig, batch, state, *,
                         runtime: str = "retro", chunk_lens=None):
-    """Consume the next right-padded prompt chunk ``batch['tokens']`` (B, C)."""
-    _dense_only(cfg)
-    return transformer.prefill_chunk(params, cfg, batch["tokens"], state,
-                                     runtime=runtime, chunk_lens=chunk_lens)
+    """Consume the next right-padded prompt chunk ``batch['tokens']`` (B, C)
+    (and the request's whole ``batch['patch_embeds']``, vlm)."""
+    _attention_family(cfg)
+    return transformer.prefill_chunk(
+        params, cfg, batch["tokens"], state, runtime=runtime,
+        chunk_lens=chunk_lens, patch_embeds=batch.get("patch_embeds"))
 
 
 def finalize_prefill_chunk(cfg: ModelConfig, state, *, runtime: str = "retro",
                            total_len: int):
-    _dense_only(cfg)
+    _attention_family(cfg)
     return transformer.finalize_prefill_chunk(cfg, state, runtime=runtime,
                                               total_len=total_len)
 
@@ -101,7 +109,7 @@ def apply_decode(params, cfg: ModelConfig, state, token, *,
     runtime): "jnp" (reference execution-buffer path), "fused" (paged
     kernel) or "pallas" (gathered-buffer kernel); None defers to
     ``cfg.retro.attn_impl``."""
-    _dense_only(cfg)
+    _attention_family(cfg)
     if plan is None:
         if seq_len is None:
             raise ValueError("need plan or seq_len")
@@ -113,8 +121,8 @@ def apply_decode(params, cfg: ModelConfig, state, token, *,
 
 def supports_offload(cfg: ModelConfig, runtime: str = "retro") -> bool:
     """The host-offload wave buffer needs cluster stores to offload: the
-    retro runtime on an attention family (the port has the dense one)."""
-    return runtime == "retro" and cfg.family in PORTED_FAMILIES
+    retro runtime on an attention family."""
+    return runtime == "retro" and cfg.family in ATTN_FAMILIES
 
 
 def offload_decode_fns(cfg: ModelConfig):
@@ -122,7 +130,7 @@ def offload_decode_fns(cfg: ModelConfig):
     unembed, flush)`` (``transformer.offload_decode_rank`` /
     ``offload_decode_attend`` / ``offload_flush``). The engine owns the
     control plane between the two halves."""
-    _dense_only(cfg)
+    _attention_family(cfg)
     return (transformer.decode_embed, transformer.offload_decode_rank,
             transformer.offload_decode_attend, transformer.decode_unembed,
             transformer.offload_flush)
@@ -133,7 +141,7 @@ def flush_state(cfg: ModelConfig, state, *, runtime: str = "retro",
     """Decode-time segmented-clustering index update of every layer (rows
     default to those whose staging buffer is full). A no-op for the dense
     cache of the full runtime."""
-    _dense_only(cfg)
+    _attention_family(cfg)
     if runtime != "retro":
         return state
     return state._replace(kv=[flush_segment(st, cfg.retro, rows=rows)
@@ -149,7 +157,7 @@ def needs_flush(cfg: ModelConfig, appended_since_flush: int) -> bool:
 def make_serve_state(cfg: ModelConfig, B: int, seq_len: int, *,
                      runtime: str = "retro", gen_headroom: int = 4096,
                      zero_fill: bool = False, device=None):
-    _dense_only(cfg)
+    _attention_family(cfg)
     return transformer.init_serve_state(cfg, B, seq_len, runtime=runtime,
                                         gen_headroom=gen_headroom,
                                         zero_fill=zero_fill,

@@ -1,8 +1,10 @@
-"""Dense GQA transformer serving path.
+"""GQA transformer serving path: dense (gemma/minitron), MoE
+(mixtral/kimi: ``models/moe.py`` in place of the MLP) and VLM (the llava
+backbone: patch embeddings replace the first positions' token embeddings).
 
-Port of ``repro/models/transformer.py``, dense family only: init, the
-monolithic prefill of blocking admission (flash or block-sparse attention,
-then ``prefill_build``), chunked prefill (exact chunk attention against an
+Port of ``repro/models/transformer.py``: init, the monolithic prefill of
+blocking admission (flash or block-sparse attention, then
+``prefill_build``), chunked prefill (exact chunk attention against an
 admission cache while the wave index is built incrementally) and its
 finalize, the decode step with any of the decode-attention impls
 (``attn_impl``: "jnp", "fused", "pallas"), and the two halves of the
@@ -31,6 +33,7 @@ from repro_torch.core.wave_index import (WaveState, append_token,
                                          scatter_chunk_rows)
 from repro_torch.core.zones import ZonePlan, plan_zones
 from repro_torch.models import layers as L
+from repro_torch.models.moe import init_moe, moe_apply_grouped
 
 GLOBAL_WINDOW = 1.0e9   # "no sliding window" sentinel
 
@@ -58,26 +61,28 @@ def init_transformer(cfg: ModelConfig, generator: torch.Generator,
                      device) -> Dict[str, Any]:
     """Random parameters with the reference's distributions: normal scaled
     by 1/sqrt(fan_in), embedding by d_model^-0.5, zero norms, tied
-    embeddings. ``generator`` must live on ``device``."""
+    embeddings; a MoE layer's router in f32 and its experts stacked
+    (``moe.init_moe``). ``generator`` must live on ``device``."""
     a, d, dt = cfg.attn, cfg.d_model, torch_dtype(cfg)
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE layers are not ported yet")
 
     def dense(shape, scale=None):
         return _dense(generator, shape, dt, device, scale)
 
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
-            "ln1": torch.zeros((d,), dtype=dt, device=device),
-            "ln2": torch.zeros((d,), dtype=dt, device=device),
-            "attn": {"wq": dense((d, a.n_heads * a.head_dim)),
-                     "wk": dense((d, a.n_kv_heads * a.head_dim)),
-                     "wv": dense((d, a.n_kv_heads * a.head_dim)),
-                     "wo": dense((a.n_heads * a.head_dim, d))},
-            "mlp": {"w_gate": dense((d, cfg.d_ff)), "w_up": dense((d, cfg.d_ff)),
-                    "w_down": dense((cfg.d_ff, d))},
-        })
+        lp = {"ln1": torch.zeros((d,), dtype=dt, device=device),
+              "ln2": torch.zeros((d,), dtype=dt, device=device),
+              "attn": {"wq": dense((d, a.n_heads * a.head_dim)),
+                       "wk": dense((d, a.n_kv_heads * a.head_dim)),
+                       "wv": dense((d, a.n_kv_heads * a.head_dim)),
+                       "wo": dense((a.n_heads * a.head_dim, d))}}
+        if cfg.moe is not None:
+            lp["moe"] = init_moe(generator, d, cfg.moe, dt, device)
+        else:
+            lp["mlp"] = {"w_gate": dense((d, cfg.d_ff)),
+                         "w_up": dense((d, cfg.d_ff)),
+                         "w_down": dense((cfg.d_ff, d))}
+        layers.append(lp)
     params = {"embed": dense((cfg.vocab, d), scale=d ** -0.5),
               "layers": layers, "window": layer_windows(cfg),
               "final_norm": torch.zeros((d,), dtype=dt, device=device)}
@@ -90,9 +95,15 @@ def init_transformer(cfg: ModelConfig, generator: torch.Generator,
 # shared pieces
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params, cfg: ModelConfig, tokens):
+def embed_tokens(params, cfg: ModelConfig, tokens, patch_embeds=None):
+    """Scaled token embeddings; (B, P, D) ``patch_embeds`` (vlm) replace
+    the first P positions, cast to the activation dtype and not scaled."""
     x = params["embed"][tokens]
-    return x * L.rounded(math.sqrt(cfg.d_model), x.dtype)
+    x = x * L.rounded(math.sqrt(cfg.d_model), x.dtype)
+    if patch_embeds is not None:
+        P = patch_embeds.shape[1]
+        x = torch.cat([patch_embeds.to(x.dtype), x[:, P:]], dim=1)
+    return x
 
 
 def unembed(params, cfg: ModelConfig, x):
@@ -101,6 +112,13 @@ def unembed(params, cfg: ModelConfig, x):
 
 
 def _ffn(lp, x, cfg: ModelConfig):
+    """x: (..., D) -> (..., D): the MLP, or the MoE FFN over every token of
+    the call (its aux loss is for training and dropped here)."""
+    if cfg.moe is not None:
+        y, _ = moe_apply_grouped(lp["moe"], x.reshape(-1, x.shape[-1]),
+                                 cfg.moe, cfg.act,
+                                 groups=cfg.moe_dispatch_groups)
+        return y.view(x.shape)
     return L.mlp_apply(lp["mlp"], x, cfg.act)
 
 
@@ -110,8 +128,9 @@ class ServeState(NamedTuple):
     kv: List[Any]
 
 
-def prefill(params, cfg: ModelConfig, tokens, *, runtime: str = "retro",
-            plan: Optional[ZonePlan] = None, gen_headroom: int = 4096,
+def prefill(params, cfg: ModelConfig, tokens, patch_embeds=None, *,
+            runtime: str = "retro", plan: Optional[ZonePlan] = None,
+            gen_headroom: int = 4096,
             lengths: Optional[torch.Tensor] = None,
             cache_len: Optional[int] = None
             ) -> Tuple[torch.Tensor, ServeState]:
@@ -125,9 +144,11 @@ def prefill(params, cfg: ModelConfig, tokens, *, runtime: str = "retro",
     (default T + gen_headroom); the engine sizes every slot's prefill to the
     decode batch's capacity so the state grafts into it.
     ``cfg.sparse_prefill_blocks > 0`` (and T a multiple of 128) runs
-    block-sparse attention instead of the dense flash attention."""
+    block-sparse attention instead of the dense flash attention.
+    ``patch_embeds``: (B, P, D) vlm patch embeddings of the first P
+    positions."""
     a, retro, dt = cfg.attn, cfg.retro, torch_dtype(cfg)
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, patch_embeds)
     B, T, _ = x.shape
     dev = tokens.device
     positions = torch.arange(T, device=dev)
@@ -247,10 +268,13 @@ def _chunk_attention(q, cache: wa.DenseCache, t0, clens, *, window=None,
 
 
 def prefill_chunk(params, cfg: ModelConfig, tokens, state: PrefillChunkState,
-                  *, runtime: str = "retro", chunk_lens=None
-                  ) -> Tuple[torch.Tensor, PrefillChunkState]:
+                  *, runtime: str = "retro", chunk_lens=None,
+                  patch_embeds=None) -> Tuple[torch.Tensor, PrefillChunkState]:
     """Process the next prompt chunk. tokens: (B, C) right-padded; returns
-    (logits at each row's last valid chunk position, new state)."""
+    (logits at each row's last valid chunk position, new state).
+    ``patch_embeds``: the request's whole (B, P, D) vlm patch embeddings;
+    the chunk positions below P take theirs in place of the token
+    embeddings."""
     a, retro = cfg.attn, cfg.retro
     B, C = tokens.shape
     dev = tokens.device
@@ -259,6 +283,12 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, state: PrefillChunkState,
     t0 = state.cache[0].length                               # (B,)
     positions = t0[:, None] + torch.arange(C, device=dev)    # (B, C)
     x = embed_tokens(params, cfg, tokens)
+    if patch_embeds is not None:
+        P = patch_embeds.shape[1]
+        at = positions.clamp(0, P - 1).long()[..., None] \
+            .expand(-1, -1, x.shape[-1])
+        pe = torch.gather(patch_embeds, 1, at).to(x.dtype)
+        x = torch.where((positions < P)[..., None], pe, x)
     caches, waves = [], []
     for lp, cache_l, wave_l, window in zip(params["layers"], state.cache,
                                            state.wave, params["window"]):

@@ -63,6 +63,9 @@ class Request:
     max_new_tokens: int
     out_tokens: List[int] = field(default_factory=list)
     done: bool = False
+    # per-request prefill extras, (1, ...) tensors or arrays: for vlm
+    # {"patch_embeds": (1, P, D)}, handed to every prefill call of the request
+    extra: Optional[Dict] = None
     # ---- filled by the engine ----
     ttft_s: float = 0.0                 # enqueue -> first token
     decode_tps: float = 0.0             # this request's decode tokens/s
@@ -182,6 +185,7 @@ class _Admission:
     cstate: Any = None                  # PrefillChunkState
     consumed: int = 0
     logits: Any = None                  # device logits of the last chunk
+    extra: Dict = field(default_factory=dict)   # ``req.extra`` on the device
 
 
 class _Readback:
@@ -209,6 +213,13 @@ def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     if dev.type == "cuda":
         return t.pin_memory().to(dev, non_blocking=True)
     return t.clone()            # never alias the caller's host array
+
+
+def _extras(req: Request, dev: torch.device) -> Dict[str, torch.Tensor]:
+    """A request's prefill extras as device tensors (numpy arrays are
+    copied over; tensors are moved where they lie elsewhere)."""
+    return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(v))).to(dev) for k, v in (req.extra or {}).items()}
 
 
 def graft(big, small, slot: int):
@@ -575,7 +586,7 @@ class ServeEngine:
         if admission not in ("chunked", "blocking"):
             raise ValueError(f"unknown admission mode {admission!r}")
         self.device = resolve_device(device)
-        M._dense_only(cfg)
+        M._attention_family(cfg)
         self.attn_impl = resolve_attn_impl(attn_impl or cfg.retro.attn_impl)
         self.cfg = cfg
         self.params = params
@@ -719,8 +730,10 @@ class ServeEngine:
                     S_b = min(self._bucket(L), max_ctx)
                     toks = np.zeros((1, S_b), np.int32)
                     toks[0, :L] = req.prompt
+                    batch = {"tokens": to_device(toks, dev),
+                             **_extras(req, dev)}
                     logits, st1 = M.apply_prefill(
-                        self.params, cfg, {"tokens": to_device(toks, dev)},
+                        self.params, cfg, batch,
                         runtime=rt, plan=plan, gen_headroom=self.gen_headroom,
                         lengths=to_device(np.array([L], np.int32), dev),
                         cache_len=max_ctx + self.gen_headroom)
@@ -733,8 +746,9 @@ class ServeEngine:
                     continue
                 if admitting[i] is None and not active[i] \
                         and slots[i] is None and queue:
+                    req = queue.popleft()
                     admitting[i] = _Admission(
-                        req=queue.popleft(),
+                        req=req, extra=_extras(req, dev),
                         cstate=M.make_prefill_chunk_state(
                             cfg, 1, max_ctx, runtime=rt,
                             chunk=self.prefill_chunk,
@@ -747,7 +761,8 @@ class ServeEngine:
                 toks = np.zeros((1, C), np.int32)
                 toks[0, :n] = adm.req.prompt[adm.consumed:adm.consumed + n]
                 adm.logits, adm.cstate = M.apply_prefill_chunk(
-                    self.params, cfg, {"tokens": to_device(toks, dev)},
+                    self.params, cfg,
+                    {"tokens": to_device(toks, dev), **adm.extra},
                     adm.cstate, runtime=rt,
                     chunk_lens=to_device(np.array([n], np.int32), dev))
                 adm.consumed += n
@@ -865,8 +880,12 @@ class ServeEngine:
         self.last_graph = graph
         return metrics
 
-    def run_wave(self, requests: List[Request]) -> ServeMetrics:
-        """Serve one batch of requests with one slot each. (The reference's
-        ``extra_batch`` carries vlm/audio inputs, whose families are not
-        ported.)"""
+    def run_wave(self, requests: List[Request],
+                 extra_batch: Optional[Dict] = None) -> ServeMetrics:
+        """Serve one batch of requests with one slot each; ``extra_batch``
+        (e.g. vlm ``patch_embeds`` (B, P, D)) is split into the requests'
+        ``extra`` rows."""
+        if extra_batch:
+            for i, r in enumerate(requests):
+                r.extra = {k: v[i:i + 1] for k, v in extra_batch.items()}
         return self.serve(requests, batch_size=len(requests))

@@ -49,10 +49,13 @@ def test_zone_plan_and_layout_match(seq_len):
 
 
 @pytest.mark.parametrize("which", ["CONFIG", "reduced"])
-@pytest.mark.parametrize("arch", ["gemma2_9b", "gemma3_1b", "minitron_8b"])
+@pytest.mark.parametrize("arch", ["gemma2_9b", "gemma3_1b", "minitron_8b",
+                                  "mixtral_8x22b", "kimi_k2_1t_a32b",
+                                  "llava_next_34b"])
 def test_dense_config_fields_match(arch, which):
-    """The other three ``family="dense"`` configs, published and reduced,
-    field-equal to the reference's, under both their names."""
+    """The other three ``family="dense"`` configs and the moe (mixtral,
+    kimi) and vlm (llava) ones, published and reduced, field-equal to the
+    reference's, under both their names."""
     port = registry.get_config(arch) if which == "CONFIG" \
         else registry.reduced_config(arch)
     ref = ref_registry.get_config(arch) if which == "CONFIG" \
@@ -65,3 +68,14 @@ def test_dense_config_fields_match(arch, which):
     assert registry.ALIASES[alias] == arch
     assert (registry.get_config(alias) if which == "CONFIG"
             else registry.reduced_config(alias)) == port
+
+
+def test_moe_config_fields_match():
+    """``MoEConfig``: the reference's fields, in order, with its
+    defaults."""
+    from repro.configs.base import MoEConfig as RefMoE
+    from repro_torch.configs.base import MoEConfig
+    assert [(f.name, f.default) for f in dataclasses.fields(MoEConfig)] == \
+        [(f.name, f.default) for f in dataclasses.fields(RefMoE)]
+    assert dataclasses.asdict(MoEConfig(8, 2, 16384)) == \
+        dataclasses.asdict(RefMoE(8, 2, 16384))

@@ -1,11 +1,12 @@
 """The CUDA kernels against their plain twins, on a CUDA card (marked
 ``cuda``; skipped without a card: a CUDA kernel has no CPU mode): the paged
 and the gathered-buffer wave attention (including many splits, several
-tiles per split through the cp.async ring, an all-empty row, and the same
-bits from two calls, and group sizes mixed in one process), the block
-gather (chunked blocks, out-of-range ids, refused views) and the k-means
-step (ragged tiles, exact ties, bit-equal sums run to run). Imports no
-JAX, so it also runs on a machine with the card and without JAX:
+tiles per split through the cp.async ring, an all-empty row, the same
+bits from two calls, group sizes mixed in one process, and G 3, 5, 6 and 7
+between the powers of two), the block gather (chunked blocks,
+out-of-range ids, refused views) and the k-means step (ragged tiles, exact
+ties, bit-equal sums run to run). Imports no JAX, so it also runs on a
+machine with the card and without JAX:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
 """
@@ -147,6 +148,33 @@ def test_cuda_attention_across_group_sizes(cuda, op):
         ref = plain(*args, softcap=50.0)
         assert (out - ref).abs().max().item() <= \
             2e-5 * (1 + ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [3, 5, 6, 7])
+@pytest.mark.parametrize("op", ["paged_wave_attention", "wave_attention_merge"])
+def test_cuda_attention_at_group_sizes_between_powers_of_two(cuda, op, G, hd,
+                                                             dtype):
+    """Both attention kernels at G 3, 5, 6 and 7 query heads per KV head
+    (mixtral-8x22b has 6, llava-next-34b 7), hd 64 and 128, against their
+    twins within the kernels' gate, the same bits from two calls."""
+    if op == "paged_wave_attention":
+        args = random_decode_inputs(**dict(SMALL, G=G, hd=hd, dtype=dtype,
+                                           window=128.0), device="cuda")
+    else:
+        args = random_merge_inputs(**dict(MERGE_SMALL, G=G, hd=hd,
+                                          dtype=dtype), device="cuda")
+    kern, plain = getattr(ops, op), getattr(ops, op + "_plain")
+    out = kern(*args, softcap=50.0)
+    again = kern(*args, softcap=50.0)
+    torch.cuda.synchronize()
+    ref = plain(*args, softcap=50.0)
+    assert out.shape == ref.shape and out.shape[2] == G
+    assert (out - ref).abs().max().item() <= \
+        2e-5 * (1 + ref.abs().max().item())
+    assert torch.equal(out, again)
 
 
 def _stores(cuda, shape, dtype, seed=0):
