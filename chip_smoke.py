@@ -85,7 +85,24 @@
 13. serves kimi-k2 at full published width (384 experts top-8, G 8,
    vocab 163840), depth cut 61 -> 1 layer (the expert weights drawn one
    expert at a time), one 4096-token prompt through the paged kernel, the
-   MoE FFN's device time per step, and the reduced model card vs CPU.
+   MoE FFN's device time per step, and the reduced model card vs CPU;
+14. serves zamba2-1.2b at published width and depth (38 mamba2 layers,
+   the shared attention block after every 6th: 6 sites, each with its own
+   wave index; MHA, G 1, hd 64) with blocking admission, the family's
+   only: prompts of 8192 and 6000 tokens through the paged kernel, one
+   8192-token request through the gathered-buffer kernel, both under
+   ``runtime="full"``; launches = 6 sites x steps; both kernels against
+   their twins on a captured site launch (bound, device duration); the
+   decode breakdown; replay == eager bit for bit for "fused" and
+   "pallas"; the reduced model card vs CPU;
+15. serves rwkv6-3b at published width and depth (32 layers,
+   attention-free) with blocking admission (4096 / 3000 tokens): no
+   attention launch, the breakdown, replay == eager, reduced card vs CPU;
+16. serves whisper-tiny at published width and depth (4 + 4 layers over
+   1500 seeded bf16 stub frames a request; G 1, hd 64) with 448- and
+   300-token decoder prompts through the paged kernel and under
+   ``runtime="full"``: launches = 4 layers x steps, a captured launch
+   against the twin, the breakdown, replay == eager, reduced card vs CPU.
 
 Every serve run above decodes through ``ServeEngine``'s compiled stages:
 the first step of the run eagerly, the rest as replays of one captured
@@ -716,6 +733,33 @@ IMPL_KERNEL = {"fused": "paged_wave_attention",
                "pallas": "wave_attention_merge"}
 
 
+def attn_kinds(cfg):
+    """The kind ('g' global, 'l' local) of each attention layer a decode
+    step walks, in order: every layer of an attention family, every
+    shared-attention site of the hybrid, every decoder layer of the audio
+    family (all global), none for ssm."""
+    from repro_torch.models import hybrid
+    from repro_torch.models import model as M
+    if cfg.family in M.ATTN_FAMILIES:
+        return cfg.layer_kinds()
+    if cfg.family == "hybrid":
+        return ("g",) * len(hybrid.attn_sites(cfg))
+    return ("g",) * (cfg.n_layers if cfg.family == "audio" else 0)
+
+
+def frame_extra(cfg, seed, device="cuda"):
+    """A request's audio extras: seeded normal bf16 frame embeddings (1,
+    encoder_frames, d_model), the reference's stubbed mel + conv frontend;
+    None for other families."""
+    import torch
+    if cfg.family != "audio":
+        return None
+    g = torch.Generator(device=device).manual_seed(2000 + seed)
+    return {"frames": torch.randn((1, cfg.encoder_frames, cfg.d_model),
+                                  generator=g, device=device)
+            .to(torch.bfloat16)}
+
+
 def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
                     runtime="retro", admission="chunked", chunk=256,
                     batch=2, device="cuda", seed=0, min_capture_pos=4096,
@@ -726,7 +770,10 @@ def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
     every kernel's launch count is set to 0 just before and read just
     after. ``params``: the model's (default: random from ``seed``);
     ``patches`` > 0 gives each request seeded bf16 patch embeddings of its
-    first ``patches`` positions (vlm, ``Request.extra``)."""
+    first ``patches`` positions (vlm, ``Request.extra``); an audio
+    family's requests get seeded frame embeddings (``frame_extra``). The
+    attention launches are counted per attention layer (``attn_kinds``:
+    a hybrid's sites, a decoder's layers; none for ssm)."""
     import numpy as np
     import torch
     from repro_torch.core import attention
@@ -745,41 +792,44 @@ def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
             f" B in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(seed)
     reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32), m,
-                    extra=patch_extra(cfg, patches, seed + i, device))
+                    extra=patch_extra(cfg, patches, seed + i, device)
+                    or frame_extra(cfg, seed + i, device))
             for i, (n, m) in enumerate(zip(prompt_lens, new_tokens))]
     engine = ServeEngine(cfg, params, prefill_chunk=chunk, device=device,
                          attn_impl=attn_impl, runtime=runtime,
                          admission=admission)
     if engine.attn_impl != attn_impl:
         raise AssertionError(f"engine resolved {engine.attn_impl}")
-    cap = Capture(ops, attention, cfg.n_layers, cfg.layer_kinds(),
-                  min_capture_pos)
+    kinds = attn_kinds(cfg)
+    n_attn = len(kinds)
+    cap = Capture(ops, attention, n_attn, kinds, min_capture_pos)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     m, wall, counts = tapped_serve(engine, reqs, batch, cap)
     peak = torch.cuda.max_memory_allocated()
-    path = IMPL_KERNEL[attn_impl] if runtime == "retro" else None
+    path = IMPL_KERNEL[attn_impl] if runtime == "retro" and n_attn else None
     if path is not None:
         cap.finish(path)
     graph = engine.last_graph
     if (graph.captures, graph.replays) != (1, m.steps - 1):
         raise AssertionError(f"{graph.captures} captures, {graph.replays} "
                              f"replays for {m.steps} decode steps")
-    if path is not None and cap.recorded != {path: cfg.n_layers}:
+    if path is not None and cap.recorded != {path: n_attn}:
         raise AssertionError(f"the capture recorded {cap.recorded}")
 
     # --- what came out ---
     want = {k: 0 for k in counts}
     if path is not None:
-        want[path] = cfg.n_layers * m.steps
+        want[path] = n_attn * m.steps
     if counts != want:
         raise AssertionError(f"kernel launches {counts} for {m.steps} decode "
-                             f"steps x {cfg.n_layers} layers: want {want}")
+                             f"steps x {n_attn} attention layers: want "
+                             f"{want}")
     if want_flush and m.flushes < 1:
         raise AssertionError("no decode-time flush ran")
     retro = cfg.retro
-    kv = engine.last_state.kv
+    kv = M.kv_states(cfg, engine.last_state)
     for r in reqs:
         n = len(r.out_tokens)
         if n != r.max_new_tokens or r.status != "ok":
@@ -818,18 +868,18 @@ def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
     log(f"  {cfg.arch_id} {runtime}/{admission}/{attn_impl}: decode steps "
         f"{m.steps} (1 warm-up + {graph.replays} replays of "
         f"{graph.captures} captured graph), launches {counts} "
-        f"(= {cfg.n_layers} x steps of {path}), flushes {m.flushes}")
+        f"(= {n_attn} x steps of {path}), flushes {m.flushes}")
     log(f"  TTFT s {['%.3f' % t for t in res['ttft_s']]}; prefill "
         f"{res['prefill_tps']:.1f} tok/s; decode {res['decode_tps']:.2f} "
         f"tok/s; ITL p50/p99 {res['itl_p50_ms']:.2f}/"
         f"{res['itl_p99_ms']:.2f} ms; peak mem "
         f"{res['peak_mem_gib']:.2f} GiB ({res['held_before_gib']:.2f} held "
         f"before the run); wall {wall:.1f} s")
-    if path is not None and set(cap.taken) != set(cfg.layer_kinds()):
+    if path is not None and set(cap.taken) != set(kinds):
         raise AssertionError(f"captured launches {sorted(cap.taken)}")
     # the replays' launches are counted from the capture; a profiled replay
     # shows the card running that many
-    res["profiled_replay"] = profiled_replay(graph, path, cfg.n_layers)
+    res["profiled_replay"] = profiled_replay(graph, path, n_attn)
     log(f"  one profiled replay after the run: "
         f"{res['profiled_replay']['attention_launches']} attention kernel "
         f"launches (split + combine per layer), "
@@ -1124,14 +1174,23 @@ def config_case(name, args, softcap, op, timed):
     return res
 
 
-def captured_launch(name, taken, kind, op="paged_wave_attention"):
+def captured_launch(name, taken, kind, op="paged_wave_attention",
+                    with_device=False):
     """A served path's captured launch of layer kind ``kind`` against the
-    twin, timed, with its bound."""
+    twin, timed, with its bound; ``with_device``: also its device duration
+    (split + combine, profiler)."""
+    from repro_torch.kernels.wave_attention import ops
     layer, args, softcap = taken[kind][:3]
     res = compare(f"{name}_captured_layer_{layer}", args, softcap, op=op,
                   time_it=True)
     res["bound_ms"], res["bound_by"] = BOUNDS[op](args)
-    log(f"    bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    msg = f"    bound {res['bound_ms']:.4f} ms ({res['bound_by']})"
+    if with_device:
+        res["device_ms"] = device_ms(
+            lambda: getattr(ops, op)(*args, softcap=softcap),
+            KERNEL_TAGS[op])
+        msg += f", device duration {res['device_ms']:.4f} ms"
+    log(msg)
     return res
 
 
@@ -1141,6 +1200,44 @@ def state_layout(state):
     return [[i, f, list(t.shape), list(t.stride()), t.is_contiguous(),
              str(t.device), t.storage_offset()]
             for i, st in enumerate(state.kv) for f, t in zip(st._fields, st)]
+
+
+def replay_vs_eager(graph, restore, act, steps, tag, want_attn, name):
+    """``steps`` eager steps of ``graph``'s decode step after ``restore``,
+    then restored, one capture, restored again, ``steps`` replays: the
+    logits bits and ids must be equal, and one profiled replay must launch
+    ``want_attn`` kernels named after ``tag``, with one capture. Returns
+    the result; raises on a breach."""
+    import torch
+    with torch.inference_mode():
+        restore(graph)
+        eager = [tuple(t.clone() for t in eager_step(graph, act))
+                 for _ in range(steps)]
+        restore(graph)
+        graph.step(act)                             # warm-up + capture
+        restore(graph)
+        replay = [tuple(t.clone() for t in graph.step(act))
+                  for _ in range(steps)]
+        torch.cuda.synchronize()
+        rows, _ = _profile_rows(
+            lambda: graph.step(act), 1, complete=lambda rows:
+            _launch_count(rows, tag) == want_attn)
+    same = all(torch.equal(a[0], b[0]) for a, b in zip(eager, replay))
+    ids = all(torch.equal(a[1], b[1]) for a, b in zip(eager, replay))
+    finite = all(torch.isfinite(a[0]).all() for a in replay)
+    n_attn = _launch_count(rows, tag)
+    res = dict(bit_identical=same, ids_equal=ids, captures=graph.captures,
+               replays=graph.replays,
+               kernels_per_replay=sum(r[2] for r in rows),
+               attention_launches_per_replay=n_attn)
+    log(f"  {name}: {steps} eager vs {steps} replayed steps from one "
+        f"state: logits bit-identical {same}, ids equal {ids}; one "
+        f"profiled replay: {res['kernels_per_replay']} kernels, "
+        f"{n_attn} attention launches (want {want_attn})")
+    if not (same and ids and finite and n_attn == want_attn
+            and graph.captures == 1):
+        raise AssertionError(f"compiled step {name}: {res}")
+    return res
 
 
 def compiled_step_check(params, cfg, prompt_lens=(8192, 6000), steps=8,
@@ -1195,44 +1292,110 @@ def compiled_step_check(params, cfg, prompt_lens=(8192, 6000), steps=8,
             graph = DecodeGraph(eng._decode_fn(plan), eng._sample_dev,
                                 state, first.clone(),
                                 key=(B, S, impl, runtime))
-            with torch.inference_mode():
-                restore(graph)
-                eager = [tuple(t.clone() for t in eager_step(graph, act))
-                         for _ in range(steps)]
-                restore(graph)
-                graph.step(act)                     # warm-up + capture
-                restore(graph)
-                replay = [tuple(t.clone() for t in graph.step(act))
-                          for _ in range(steps)]
-                torch.cuda.synchronize()
-                name = "full" if runtime == "full" else impl
-                tag = KERNEL_TAGS.get(IMPL_KERNEL.get(impl)) \
-                    if runtime == "retro" else None
-                want_attn = 2 * cfg.n_layers if tag else 0
-                rows, _ = _profile_rows(
-                    lambda: graph.step(act), 1, complete=lambda rows:
-                    _launch_count(rows, tag) == want_attn)
-            same = all(torch.equal(a[0], b[0]) for a, b in zip(eager, replay))
-            ids = all(torch.equal(a[1], b[1]) for a, b in zip(eager, replay))
-            finite = all(torch.isfinite(a[0]).all() for a in replay)
-            n_attn = _launch_count(rows, tag)
-            out[name] = dict(bit_identical=same, ids_equal=ids,
-                             captures=graph.captures, replays=graph.replays,
-                             kernels_per_replay=sum(r[2] for r in rows),
-                             attention_launches_per_replay=n_attn,
-                             attention_kernel=IMPL_KERNEL.get(impl)
-                             if runtime == "retro" else None)
-            log(f"  {name}: {steps} eager vs {steps} replayed steps from one "
-                f"state: logits bit-identical {same}, ids equal {ids}; one "
-                f"profiled replay: {out[name]['kernels_per_replay']} kernels, "
-                f"{n_attn} attention launches (want {want_attn})")
-            if not (same and ids and finite and n_attn == want_attn
-                    and graph.captures == 1):
-                raise AssertionError(f"compiled step {name}: {out[name]}")
+            name = "full" if runtime == "full" else impl
+            tag = KERNEL_TAGS.get(IMPL_KERNEL.get(impl)) \
+                if runtime == "retro" else None
+            out[name] = replay_vs_eager(graph, restore, act, steps, tag,
+                                        2 * cfg.n_layers if tag else 0, name)
+            out[name]["attention_kernel"] = IMPL_KERNEL.get(impl) \
+                if runtime == "retro" else None
             del graph
         del state, saved, eng
         torch.cuda.empty_cache()
     return out
+
+
+def family_compiled_check(engine, max_ctx, impls, steps=8):
+    """Phase 10's method for the non-attention families, on the state the
+    serve run of ``engine`` left (every slot holding its request's
+    context, admitted as the engine admits these families: one blocking,
+    unpadded prefill a prompt): for each impl, the engine's step of that
+    geometry captured by a ``DecodeGraph``: ``steps`` eager steps, every
+    state tensor restored, one capture, restored again, ``steps`` replays.
+    Replayed logits must equal the eager step's bits and the ids must be
+    equal; one profiled replay must launch 2 x (attention layers)
+    attention kernels (none for ssm)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.zones import plan_zones
+    from repro_torch.serving.graphs import DecodeGraph, leaves
+    cfg, state, runtime = engine.cfg, engine.last_state, engine.runtime
+    B = engine.last_graph.tokens.shape[0]
+    act = np.ones(B, bool)
+    plan = None if cfg.family == "ssm" else \
+        plan_zones(max_ctx, cfg.retro, engine.gen_headroom)
+    with torch.inference_mode():
+        saved = [t.clone() for t in leaves(state)]
+    first = torch.tensor([1, 2], dtype=torch.int32,
+                         device=saved[0].device)[:B]
+
+    def restore(graph):
+        for t, sv in zip(leaves(state), saved):
+            t.copy_(sv)
+        graph.tokens.copy_(first)
+
+    n_attn = len(attn_kinds(cfg))
+    out = {}
+    for impl in impls:
+        engine.attn_impl = impl
+        graph = DecodeGraph(engine._decode_fn(plan), engine._sample_dev,
+                            state, first.clone(),
+                            key=(B, max_ctx, impl, runtime))
+        name = "full" if runtime == "full" else impl
+        tag = KERNEL_TAGS.get(IMPL_KERNEL.get(impl)) \
+            if runtime == "retro" and n_attn else None
+        out[name] = replay_vs_eager(graph, restore, act, steps, tag,
+                                    2 * n_attn if tag else 0,
+                                    f"{cfg.arch_id} {name}")
+        del graph
+    del state, saved
+    torch.cuda.empty_cache()
+    return out
+
+
+def reduced_family_across_devices(arch, attn_impl="fused", runtime="retro",
+                                  seed=0, device="cuda"):
+    """A non-attention family's reduced model on the card (kernel) vs on
+    the CPU (twin): a blocking prefill of two 300-token prompts (frames
+    for audio), then six decode steps through ``attn_impl``; the logits of
+    the prefill and of every step agree within 1e-3."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.core.zones import plan_zones
+    from repro_torch.models import model as M
+    cfg = reduced_config(arch)
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    to = lambda t: {k: to(v) for k, v in t.items()} if isinstance(t, dict) \
+        else [to(v) for v in t] if isinstance(t, list) \
+        else t.to(device) if hasattr(t, "to") else t
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 300)))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder_frames, cfg.d_model)).astype(np.float32))
+    steps = rng.integers(0, cfg.vocab, (6, 2)).astype(np.int64)
+    plan = None if cfg.family == "ssm" else plan_zones(300, cfg.retro, 256)
+    runs = {}
+    for dev, params in (("cpu", cpu), (device, to(cpu))):
+        lg, st = M.apply_prefill(params, cfg, to(batch) if dev != "cpu"
+                                 else batch, runtime=runtime, plan=plan,
+                                 gen_headroom=256)
+        out = [lg.float().cpu()]
+        for t in range(6):
+            lg, st = M.apply_decode(params, cfg, st,
+                                    torch.from_numpy(steps[t]).to(dev),
+                                    runtime=runtime, plan=plan,
+                                    attn_impl=attn_impl)
+            out.append(lg.float().cpu())
+        runs[dev] = torch.stack(out)
+    err = (runs[device] - runs["cpu"]).abs().max().item()
+    log(f"  reduced {cfg.arch_id} ({runtime}, blocking admission, "
+        f"{attn_impl}), card vs cpu logits of the prefill and 6 decode "
+        f"steps: max|d| {err:.3e} (tol 1e-3)")
+    if not torch.isfinite(runs[device]).all() or err > 1e-3:
+        raise AssertionError(f"reduced model disagrees across devices: {err}")
+    return err
 
 
 def _leaves(tree):
@@ -2138,6 +2301,116 @@ def full_attention_check(engine, max_ctx, device="cuda"):
     return res
 
 
+def run_families(results):
+    """Phases 14-16: the non-attention families at published width and
+    depth, blocking admission (their only one). Appends each captured
+    attention launch to ``results``; returns every phase's results."""
+    import torch
+    from repro_torch.configs.rwkv6_3b import CONFIG as RWKV
+    from repro_torch.configs.whisper_tiny import CONFIG as WHISPER
+    from repro_torch.configs.zamba2_1p2b import CONFIG as ZAMBA
+    out = {}
+
+    def served(key, *args, **kw):
+        out[key], taken, engine = serve_main_path(
+            *args, admission="blocking", want_flush=False, **kw)
+        return taken, engine
+
+    # ---- phase 14: zamba2-1.2b ---------------------------------------------
+    log("phase 14: serve zamba2-1.2b at published width and depth (38 "
+        "layers, d_model 2048, 32/32 heads, hd 64, d_ff 8192, ssm state 64, "
+        "expand 2; the shared attention block after every 6th layer: 6 "
+        "sites, G 1) with blocking admission, through attn_impl='fused', "
+        "'pallas' (one request) and runtime='full'")
+    lens, news = (8192, 6000), (64, 32)
+    taken, engine = served("serve_zamba2", ZAMBA, lens, news,
+                           attn_impl="fused")
+    out["zamba2_launch"] = captured_launch("zamba2", taken, "g",
+                                           with_device=True)
+    results["paged_wave_attention"].append(out["zamba2_launch"])
+    del taken
+    log("  decode-step breakdown (after the run, both slots decoding)")
+    out["decode_breakdown_zamba2"] = decode_breakdown(engine)
+    log("  the compiled decode stage at zamba2's width, on the run's state: "
+        "eager vs replayed steps (fused, pallas)")
+    out["compiled_step_zamba2"] = family_compiled_check(
+        engine, max(lens), ("fused", "pallas"))
+    params = engine.params
+    del engine
+    torch.cuda.empty_cache()
+    taken, engine = served("serve_zamba2_pallas", ZAMBA, lens[:1], (32,),
+                           attn_impl="pallas", batch=1, params=params)
+    out["zamba2_merge_launch"] = captured_launch(
+        "zamba2_merge", taken, "g", op="wave_attention_merge",
+        with_device=True)
+    results["wave_attention_merge"].append(out["zamba2_merge_launch"])
+    del taken, engine
+    torch.cuda.empty_cache()
+    _, engine = served("serve_zamba2_full", ZAMBA, lens, news,
+                       runtime="full", params=params)
+    del engine, params
+    torch.cuda.empty_cache()
+    out["reduced_zamba2_card_vs_cpu"] = reduced_family_across_devices(
+        "zamba2_1p2b")
+
+    # ---- phase 15: rwkv6-3b ------------------------------------------------
+    log("phase 15: serve rwkv6-3b at published width and depth (32 layers, "
+        "d_model 2560, d_ff 8960, head_dim 64, vocab 65536; attention-free) "
+        "with blocking admission")
+    lens = (4096, 3000)
+    _, engine = served("serve_rwkv6", RWKV, lens, news, attn_impl="fused")
+    log("  decode-step breakdown (after the run, both slots decoding)")
+    out["decode_breakdown_rwkv6"] = decode_breakdown(engine)
+    log("  the compiled decode stage at rwkv6's width, on the run's state: "
+        "eager vs replayed steps")
+    out["compiled_step_rwkv6"] = family_compiled_check(engine, max(lens),
+                                                       ("jnp",))
+    del engine
+    torch.cuda.empty_cache()
+    out["reduced_rwkv6_card_vs_cpu"] = reduced_family_across_devices(
+        "rwkv6_3b")
+
+    # ---- phase 16: whisper-tiny --------------------------------------------
+    log("phase 16: serve whisper-tiny at published width and depth (4 + 4 "
+        "layers, d_model 384, 6/6 heads, hd 64, G 1; 1500 encoder frames of "
+        "seeded bf16 stub embeddings a request) with blocking admission, "
+        "through attn_impl='fused' and runtime='full'")
+    lens, news = (448, 300), (32, 24)
+    taken, engine = served("serve_whisper", WHISPER, lens, news,
+                           attn_impl="fused", min_capture_pos=256)
+    out["whisper_launch"] = captured_launch("whisper", taken, "g",
+                                            with_device=True)
+    results["paged_wave_attention"].append(out["whisper_launch"])
+    del taken
+    log("  decode-step breakdown (after the run, both slots decoding)")
+    out["decode_breakdown_whisper"] = decode_breakdown(engine)
+    log("  the compiled decode stage at whisper's width, on the run's "
+        "state: eager vs replayed steps")
+    out["compiled_step_whisper"] = family_compiled_check(engine, max(lens),
+                                                         ("fused",))
+    params = engine.params
+    del engine
+    _, engine = served("serve_whisper_full", WHISPER, lens, news,
+                       runtime="full", params=params)
+    del engine, params
+    torch.cuda.empty_cache()
+    out["reduced_whisper_card_vs_cpu"] = reduced_family_across_devices(
+        "whisper_tiny")
+    for name, key in (("zamba2 fused, phase 14", "serve_zamba2"),
+                      ("zamba2 pallas, phase 14", "serve_zamba2_pallas"),
+                      ("zamba2 full, phase 14", "serve_zamba2_full"),
+                      ("rwkv6, phase 15", "serve_rwkv6"),
+                      ("whisper fused, phase 16", "serve_whisper"),
+                      ("whisper full, phase 16", "serve_whisper_full")):
+        r = out[key]
+        log(f"  {name}: decode {r['decode_tps']:.2f} tok/s, ITL p50/p99 "
+            f"{r['itl_p50_ms']:.2f}/{r['itl_p99_ms']:.2f} ms, TTFT s "
+            f"{['%.2f' % t for t in r['ttft_s']]}, prefill "
+            f"{r['prefill_s']:.2f} s, peak {r['peak_mem_gib']:.2f} GiB "
+            f"({r['held_before_gib']:.2f} held before)")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--json", type=Path, default=None,
@@ -2509,6 +2782,8 @@ def main(argv=None):
             f"{['%.2f' % t for t in r['ttft_s']]}, peak "
             f"{r['peak_mem_gib']:.2f} GiB")
 
+    fam = run_families(results)
+
     # the kernel line: launches on the path that runs the kernel (the serve
     # run of its impl; for the two kernels no serving path calls, one call
     # of their op entry point); times and bound at that path's captured
@@ -2531,9 +2806,15 @@ def main(argv=None):
         mixtral_blocking_fused=serve11b["launches"],
         llava_fused=serve12["launches"],
         llava_blocking_fused=serve12b["launches"],
-        kimi_fused=serve13["launches"]),
-        wave_attention_merge=dict(pallas=serve5["launches"],
-                                  llava_pallas=serve12p["launches"]))
+        kimi_fused=serve13["launches"],
+        zamba2_fused=fam["serve_zamba2"]["launches"],
+        zamba2_full=fam["serve_zamba2_full"]["launches"],
+        rwkv6=fam["serve_rwkv6"]["launches"],
+        whisper_fused=fam["serve_whisper"]["launches"],
+        whisper_full=fam["serve_whisper_full"]["launches"]),
+        wave_attention_merge=dict(
+            pallas=serve5["launches"], llava_pallas=serve12p["launches"],
+            zamba2_pallas=fam["serve_zamba2_pallas"]["launches"]))
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = timed[name]
@@ -2583,7 +2864,7 @@ def main(argv=None):
             decode_breakdown_llava=breakdown12,
             llava_blocking_vs_chunked=blk_vs_chk12, serve_kimi=serve13,
             kimi_launch=kimi_launch, moe_ffn_kimi=moe13,
-            reduced_kimi_card_vs_cpu=red13, kernels=kernels),
+            reduced_kimi_card_vs_cpu=red13, kernels=kernels, **fam),
             indent=1))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,16 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    kind: str                                # "rwkv6" | "mamba2"
+    state_size: int = 64                     # mamba2 N / rwkv head_dim
+    head_dim: int = 64
+    expand: int = 2                          # mamba2 inner expansion
+    conv_kernel: int = 4
+    dt_rank: int = 0                         # 0 => heads-many scalar dts (mamba2)
+
+
+@dataclass(frozen=True)
 class RetroConfig:
     """Wave-index geometry (paper Sec. 4.2, 5.1 defaults)."""
     avg_cluster: int = 16                    # 1 centroid per 16 tokens
@@ -80,8 +90,10 @@ class ModelConfig:
     vocab: int
     attn: Optional[AttnConfig] = None
     moe: Optional[MoEConfig] = None          # moe family: the expert FFN
-    ssm: Optional[object] = None             # SSMConfig: not ported yet
+    ssm: Optional[SSMConfig] = None          # ssm / hybrid: the recurrence
+    # hybrid (zamba2): one shared attention block applied every k SSM blocks
     shared_attn_every: int = 0
+    # enc-dec (whisper)
     encoder_layers: int = 0
     encoder_frames: int = 1500
     # vlm: number of stub patch-embedding tokens prepended to the text prompt

@@ -1,7 +1,7 @@
 """Architecture registry. Port of ``repro/configs/registry.py`` without JAX:
-the port has the attention families' configs — dense (gemma2-2b, gemma2-9b,
-gemma3-1b, minitron-8b), moe (mixtral-8x22b, kimi-k2-1t-a32b) and vlm
-(llava-next-34b); the ssm/hybrid/audio configs and
+every config of the reference — dense (gemma2-2b, gemma2-9b, gemma3-1b,
+minitron-8b), moe (mixtral-8x22b, kimi-k2-1t-a32b), vlm (llava-next-34b),
+ssm (rwkv6-3b), hybrid (zamba2-1.2b) and audio (whisper-tiny);
 ``input_specs``/``materialize_batch`` are not ported yet."""
 from __future__ import annotations
 
@@ -17,6 +17,9 @@ ALIASES = {
     "mixtral-8x22b": "mixtral_8x22b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "llava-next-34b": "llava_next_34b",
+    "zamba2-1.2b": "zamba2_1p2b",
+    "rwkv6-3b": "rwkv6_3b",
+    "whisper-tiny": "whisper_tiny",
 }
 
 

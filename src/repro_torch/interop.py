@@ -14,6 +14,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import DenseCache
 from repro_torch.core.wave_index import ChunkedPrefill, WaveState
+from repro_torch.models.encdec import EncDecServeState
+from repro_torch.models.hybrid import HybridServeState
+from repro_torch.models.mamba2 import Mamba2LayerState
+from repro_torch.models.rwkv6 import RwkvLayerState
 from repro_torch.models.transformer import PrefillChunkState, ServeState
 
 
@@ -41,12 +45,23 @@ def _to_torch(tree, device):
 def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                       device) -> Dict[str, Any]:
     """JAX ``models/model.py::init_params`` pytree (numpy leaves) -> the port's
-    parameters: per-layer dicts, and ``window`` as a list of floats."""
+    parameters: stacked layer leaves split into per-layer dicts (``layers``;
+    enc-dec: ``enc_layers`` and ``dec_layers``), unstacked subtrees (the
+    hybrid's ``shared`` block) carried as they are, and ``window`` (the
+    attention families) as a list of floats."""
     params = {k: tensor_from_numpy(tree[k], device)
-              for k in ("embed", "final_norm", "lm_head") if k in tree}
-    params["layers"] = [_to_torch(_layer(tree["layers"], i), device)
-                        for i in range(cfg.n_layers)]
-    params["window"] = [float(w) for w in np.asarray(tree["window"])]
+              for k in ("embed", "final_norm", "lm_head", "enc_norm")
+              if k in tree}
+    depth = dict(layers=cfg.n_layers, dec_layers=cfg.n_layers,
+                 enc_layers=cfg.encoder_layers)
+    for k, n in depth.items():
+        if k in tree:
+            params[k] = [_to_torch(_layer(tree[k], i), device)
+                         for i in range(n)]
+    if "shared" in tree:
+        params["shared"] = _to_torch(tree["shared"], device)
+    if "window" in tree:
+        params["window"] = [float(w) for w in np.asarray(tree["window"])]
     return params
 
 
@@ -59,17 +74,49 @@ def wave_states_from_numpy(fields: Mapping[str, np.ndarray],
                          for f in WaveState._fields}) for i in range(n)]
 
 
-def serve_state_from_numpy(fields: Mapping[str, np.ndarray],
-                           device) -> ServeState:
-    """Stacked (L, ...) serve-state leaves by field name -> ServeState: a
-    WaveState per layer (retro runtime), or a DenseCache per layer when the
-    fields are ``k``, ``v``, ``length`` (full runtime)."""
+def _kv_from_numpy(fields: Mapping[str, np.ndarray], device) -> List[Any]:
+    """Stacked (L, ...) KV-state leaves by field name -> a DenseCache per
+    layer when the fields are ``k``, ``v``, ``length`` (full runtime), else
+    a WaveState per layer (retro runtime)."""
     if set(fields) == set(DenseCache._fields):
         n = len(fields["length"])
-        return ServeState(kv=[
-            DenseCache(*(tensor_from_numpy(fields[f][i], device)
-                         for f in DenseCache._fields)) for i in range(n)])
-    return ServeState(kv=wave_states_from_numpy(fields, device))
+        return [DenseCache(*(tensor_from_numpy(fields[f][i], device)
+                             for f in DenseCache._fields)) for i in range(n)]
+    return wave_states_from_numpy(fields, device)
+
+
+def _per_layer(cls, fields: Mapping[str, np.ndarray], device) -> list:
+    """Stacked (L, ...) leaves of the NamedTuple ``cls`` by field name ->
+    one ``cls`` per layer."""
+    n = len(fields[cls._fields[0]])
+    return [cls(*(tensor_from_numpy(fields[f][i], device)
+                  for f in cls._fields)) for i in range(n)]
+
+
+def serve_state_from_numpy(fields: Mapping[str, Any], device):
+    """The reference's stacked serve state, as a mapping by field name
+    (nested mappings for nested states), -> the port's serve state of the
+    same family, told apart by its fields:
+
+    * ``ServeState`` (attention families): the KV fields themselves;
+    * rwkv6 (ssm): ``wkv``, ``x_tm``, ``x_cm`` -> a list of
+      ``RwkvLayerState``;
+    * hybrid: ``mamba`` (``ssm``, ``conv``) and ``attn_kv`` (KV fields) ->
+      ``HybridServeState``;
+    * audio: ``self_kv`` (KV fields), ``cross_k``, ``cross_v`` (L, B, F,
+      Hkv, hd) -> ``EncDecServeState``."""
+    if "wkv" in fields:
+        return _per_layer(RwkvLayerState, fields, device)
+    if "mamba" in fields:
+        return HybridServeState(
+            mamba=_per_layer(Mamba2LayerState, fields["mamba"], device),
+            attn_kv=_kv_from_numpy(fields["attn_kv"], device))
+    if "self_kv" in fields:
+        cross = lambda a: [tensor_from_numpy(x, device) for x in a]
+        return EncDecServeState(
+            self_kv=_kv_from_numpy(fields["self_kv"], device),
+            cross_k=cross(fields["cross_k"]), cross_v=cross(fields["cross_v"]))
+    return ServeState(kv=_kv_from_numpy(fields, device))
 
 
 def prefill_chunk_state_from_numpy(cache: Mapping[str, np.ndarray],
@@ -98,3 +145,22 @@ def wave_state_to_numpy(state: WaveState) -> Dict[str, np.ndarray]:
         t = t.float() if t.dtype == torch.bfloat16 else t
         out[f] = t.detach().cpu().numpy().copy()
     return out
+
+
+def serve_state_to_numpy(state) -> Any:
+    """A serve state of any family -> the reference's stacked layout as
+    numpy copies (f32 for bf16 leaves): NamedTuples as mappings by field,
+    per-layer lists stacked on a leading axis. A copy, since the port
+    updates states in place."""
+    if isinstance(state, list):
+        parts = [serve_state_to_numpy(x) for x in state]
+        if isinstance(parts[0], dict):
+            return {f: np.stack([p[f] for p in parts]) for f in parts[0]}
+        return np.stack(parts)
+    if hasattr(state, "_fields"):
+        return {f: serve_state_to_numpy(getattr(state, f))
+                for f in state._fields}
+    t = state.detach()
+    t = t.float() if t.dtype == torch.bfloat16 else t
+    return t.cpu().numpy().copy()
+

@@ -6,6 +6,8 @@ chunked or blocking admission. Port of ``repro/launch/serve.py``.
         --device cuda --requests 4 --batch 2 --prompt-lens 8192,6000 \
         --new-tokens 32 --stagger 8 [--runtime full] \
         [--admission blocking --prefill-bucket 64] [--offload --cache-frac 0.2]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_tiny \
+        --device cpu --reduced --prompt-lens 60,40 --new-tokens 4
 """
 from __future__ import annotations
 
@@ -24,9 +26,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma2_2b",
                     help="gemma2_2b, gemma2_9b, gemma3_1b, minitron_8b, "
-                         "mixtral_8x22b, kimi_k2_1t_a32b or llava_next_34b "
-                         "(or their dashed names); llava is served without "
-                         "patch embeddings, as by the reference's launcher")
+                         "mixtral_8x22b, kimi_k2_1t_a32b, llava_next_34b, "
+                         "zamba2_1p2b, rwkv6_3b or whisper_tiny (or their "
+                         "dashed names); llava is served without patch "
+                         "embeddings, as by the reference's launcher; "
+                         "whisper's requests get seeded normal frame "
+                         "embeddings (the stubbed audio frontend). ssm, "
+                         "hybrid and audio admit blocking only, and refuse "
+                         "--offload")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--runtime", default="retro", choices=["retro", "full"])
@@ -101,6 +108,10 @@ def main(argv=None):
                     .astype(np.int32),
                     max_new_tokens=args.new_tokens + i * args.stagger)
             for i in range(args.requests)]
+    if cfg.family == "audio":
+        for r in reqs:
+            r.extra = {"frames": rng.standard_normal(
+                (1, cfg.encoder_frames, cfg.d_model)).astype(np.float32)}
     m = engine.serve(reqs, batch_size=args.batch)
     print(f"served {len(reqs)} requests on {args.batch} slots "
           f"({engine.runtime}{'+offload' if engine.offload else ''}, "

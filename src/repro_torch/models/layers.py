@@ -1,5 +1,6 @@
-"""Common functional layers: norms, RoPE, GQA projections, gated MLP and
-the chunked online-softmax attention of the monolithic prefill.
+"""Common functional layers: init helpers, norms, RoPE, sinusoidal
+positions, GQA projections, gated MLP and the chunked online-softmax
+attention of the monolithic prefill.
 
 Port of ``repro/models/layers.py``. Parameters are plain dicts of tensors.
 ``flash_attention_jnp`` keeps the reference's name: it is plain code there
@@ -13,12 +14,41 @@ from typing import Optional
 import torch
 
 
+def dense_init(gen: torch.Generator, shape, dtype, device, scale=None):
+    """Normal weights scaled by ``scale`` (default 1/sqrt(fan_in), fan_in =
+    ``shape[0]``), drawn in f32 from ``gen`` and cast to ``dtype``."""
+    scale = 1.0 / math.sqrt(shape[0]) if scale is None else scale
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * scale).to(dtype)
+
+
+def init_attention(gen, d_model: int, n_heads: int, n_kv: int,
+                   head_dim: int, dtype, device):
+    return {"wq": dense_init(gen, (d_model, n_heads * head_dim), dtype, device),
+            "wk": dense_init(gen, (d_model, n_kv * head_dim), dtype, device),
+            "wv": dense_init(gen, (d_model, n_kv * head_dim), dtype, device),
+            "wo": dense_init(gen, (n_heads * head_dim, d_model), dtype, device)}
+
+
+def init_mlp(gen, d_model: int, d_ff: int, dtype, device):
+    return {"w_gate": dense_init(gen, (d_model, d_ff), dtype, device),
+            "w_up": dense_init(gen, (d_model, d_ff), dtype, device),
+            "w_down": dense_init(gen, (d_ff, d_model), dtype, device)}
+
+
 def rms_norm(x, gamma, eps: float = 1e-6):
     """RMSNorm with a ``(1 + gamma)`` scale, computed in f32."""
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * (1.0 + gamma.float())).to(x.dtype)
+
+
+def layer_norm(x, gamma, beta, eps: float = 1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None):
@@ -36,6 +66,17 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int, device=None):
+    """(length, dim) f32 table: sin at even, cos at odd channels."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device) * (-math.log(10000.0) / dim))
+    pe = torch.zeros((length, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 def soft_cap(scores, cap: Optional[float]):
@@ -118,11 +159,16 @@ def rounded(c: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(c, dtype=torch.float64).to(dtype))
 
 
+def sigmoid(x):
+    """``jax.nn.sigmoid`` op for op in x's dtype, as the reference lowers
+    it: 1 / (1 + exp(-x)), each op rounded (torch's fused sigmoid rounds
+    once)."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def silu(x):
-    """``jax.nn.silu`` op for op in x's dtype, as the reference lowers it:
-    x * 1 / (1 + exp(-x)), each op rounded (torch's fused silu and sigmoid
-    round once)."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    """``jax.nn.silu`` op for op in x's dtype: x * ``sigmoid(x)``."""
+    return x * sigmoid(x)
 
 
 def gelu_tanh(x):

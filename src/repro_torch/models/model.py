@@ -1,5 +1,7 @@
 """Model API used by the serve engine. Port of ``repro/models/model.py``
-for the attention families (dense, moe, vlm), both serve runtimes
+(the serving API) over every family — the attention families (dense, moe,
+vlm: ``transformer``), ssm (``rwkv6``), hybrid (``hybrid``: mamba2 blocks
+and a shared attention block) and audio (``encdec``) — both serve runtimes
 ("retro": the wave index; "full": a dense KV cache), blocking and chunked
 admission:
 
@@ -19,8 +21,11 @@ admission:
 
 ``batch`` keys: tokens (B, T) int; patch_embeds (B, P, D) for vlm (in
 every chunk's batch of a chunked admission: the chunk takes the slice at
-its positions). The non-attention families (ssm, hybrid, audio) raise
-``NotImplementedError``.
+its positions); frames (B, F, D) for audio. As in the reference, the
+chunked admission and the offload API exist for the attention families
+only (the others raise ``NotImplementedError``; the engine admits them
+blocking), the recurrent prefills take no ragged ``lengths``, and ssm
+decodes with ``plan=None``.
 """
 from __future__ import annotations
 
@@ -32,52 +37,75 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.wave_index import flush_segment
 from repro_torch.core.zones import ZonePlan, plan_zones
-from repro_torch.models import transformer
+from repro_torch.models import encdec, hybrid, rwkv6, transformer
 
 ATTN_FAMILIES = ("dense", "moe", "vlm")
+FAMILIES = ATTN_FAMILIES + ("ssm", "hybrid", "audio")
 
 
-def _attention_family(cfg: ModelConfig):
+def _attention_family(cfg: ModelConfig, what: str):
     if cfg.family not in ATTN_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ported: "
-            f"{ATTN_FAMILIES})")
+            f"{what} unsupported for family {cfg.family}")
+
+
+def _family(cfg: ModelConfig):
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None):
     """Random parameters on ``device`` (default ``cuda``). ``generator``
     defaults to one on that device seeded with 0."""
-    _attention_family(cfg)
+    _family(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    return transformer.init_transformer(cfg, generator, dev)
+    init = {"ssm": rwkv6.init_rwkv6, "hybrid": hybrid.init_hybrid,
+            "audio": encdec.init_encdec}.get(cfg.family,
+                                             transformer.init_transformer)
+    return init(cfg, generator, dev)
 
 
 def apply_prefill(params, cfg: ModelConfig, batch, *, runtime: str = "retro",
                   plan: Optional[ZonePlan] = None, gen_headroom: int = 4096,
                   lengths=None, cache_len: Optional[int] = None):
     """Blocking admission: the whole right-padded prompt ``batch['tokens']``
-    (B, T) in one pass. ``lengths``: optional (B,) true prompt lengths.
+    (B, T) in one pass. ``lengths``: optional (B,) true prompt lengths
+    (attention families only: recurrent prefills consume pads).
     ``cache_len``: the full runtime's dense-cache capacity."""
-    _attention_family(cfg)
-    return transformer.prefill(params, cfg, batch["tokens"],
-                               batch.get("patch_embeds"), runtime=runtime,
-                               plan=plan, gen_headroom=gen_headroom,
-                               lengths=lengths, cache_len=cache_len)
+    _family(cfg)
+    if cfg.family in ATTN_FAMILIES:
+        return transformer.prefill(params, cfg, batch["tokens"],
+                                   batch.get("patch_embeds"), runtime=runtime,
+                                   plan=plan, gen_headroom=gen_headroom,
+                                   lengths=lengths, cache_len=cache_len)
+    if lengths is not None:
+        raise ValueError("ragged (right-padded) prefill unsupported for "
+                         f"family {cfg.family}")
+    if cfg.family == "ssm":
+        return rwkv6.prefill(params, cfg, batch["tokens"])
+    if cfg.family == "hybrid":
+        return hybrid.prefill(params, cfg, batch["tokens"], runtime=runtime,
+                              plan=plan, gen_headroom=gen_headroom,
+                              cache_len=cache_len)
+    return encdec.prefill(params, cfg, batch["tokens"], batch["frames"],
+                          runtime=runtime, plan=plan,
+                          gen_headroom=gen_headroom, cache_len=cache_len)
 
 
 def supports_chunked_prefill(cfg: ModelConfig, runtime: str = "retro") -> bool:
     """Chunked admission exists for the attention families under both
-    runtimes."""
+    runtimes; the recurrent prefills (ssm, hybrid) and the enc-dec decoder
+    consume their prompt in one pass, and engines admit them blocking."""
     return cfg.family in ATTN_FAMILIES
 
 
 def make_prefill_chunk_state(cfg: ModelConfig, B: int, max_ctx: int, *,
                              runtime: str = "retro", chunk: int,
                              gen_headroom: int = 4096, device=None):
-    _attention_family(cfg)
+    _attention_family(cfg, "chunked prefill")
     return transformer.init_prefill_chunk_state(
         cfg, B, max_ctx, runtime=runtime, chunk=chunk,
         gen_headroom=gen_headroom, device=resolve_device(device))
@@ -87,7 +115,7 @@ def apply_prefill_chunk(params, cfg: ModelConfig, batch, state, *,
                         runtime: str = "retro", chunk_lens=None):
     """Consume the next right-padded prompt chunk ``batch['tokens']`` (B, C)
     (and the request's whole ``batch['patch_embeds']``, vlm)."""
-    _attention_family(cfg)
+    _attention_family(cfg, "chunked prefill")
     return transformer.prefill_chunk(
         params, cfg, batch["tokens"], state, runtime=runtime,
         chunk_lens=chunk_lens, patch_embeds=batch.get("patch_embeds"))
@@ -95,7 +123,7 @@ def apply_prefill_chunk(params, cfg: ModelConfig, batch, state, *,
 
 def finalize_prefill_chunk(cfg: ModelConfig, state, *, runtime: str = "retro",
                            total_len: int):
-    _attention_family(cfg)
+    _attention_family(cfg, "chunked prefill")
     return transformer.finalize_prefill_chunk(cfg, state, runtime=runtime,
                                               total_len=total_len)
 
@@ -108,15 +136,19 @@ def apply_decode(params, cfg: ModelConfig, state, token, *,
     """``active``: optional (B,) bool slot mask. ``attn_impl`` (retro
     runtime): "jnp" (reference execution-buffer path), "fused" (paged
     kernel) or "pallas" (gathered-buffer kernel); None defers to
-    ``cfg.retro.attn_impl``."""
-    _attention_family(cfg)
+    ``cfg.retro.attn_impl``. ssm needs no plan (its state has no KV)."""
+    _family(cfg)
+    if cfg.family == "ssm":
+        return rwkv6.decode_step(params, cfg, state, token)
     if plan is None:
         if seq_len is None:
             raise ValueError("need plan or seq_len")
         plan = plan_zones(seq_len, cfg.retro, gen_headroom)
-    return transformer.decode_step(params, cfg, state, token, runtime=runtime,
-                                   plan=plan, inline_flush=inline_flush,
-                                   active=active, attn_impl=attn_impl)
+    step = {"hybrid": hybrid.decode_step,
+            "audio": encdec.decode_step}.get(cfg.family,
+                                             transformer.decode_step)
+    return step(params, cfg, state, token, runtime=runtime, plan=plan,
+                inline_flush=inline_flush, active=active, attn_impl=attn_impl)
 
 
 def supports_offload(cfg: ModelConfig, runtime: str = "retro") -> bool:
@@ -130,22 +162,36 @@ def offload_decode_fns(cfg: ModelConfig):
     unembed, flush)`` (``transformer.offload_decode_rank`` /
     ``offload_decode_attend`` / ``offload_flush``). The engine owns the
     control plane between the two halves."""
-    _attention_family(cfg)
+    _attention_family(cfg, "host-offload decode")
     return (transformer.decode_embed, transformer.offload_decode_rank,
             transformer.offload_decode_attend, transformer.decode_unembed,
             transformer.offload_flush)
 
 
+KV_FIELD = {"hybrid": "attn_kv", "audio": "self_kv"}
+
+
+def kv_states(cfg: ModelConfig, state) -> list:
+    """The per-attention-layer KV states of a serve state (WaveStates or
+    DenseCaches): every layer's (attention families), every shared-attention
+    site's (hybrid), every decoder layer's self-attention (audio); none for
+    ssm."""
+    if cfg.family == "ssm":
+        return []
+    return getattr(state, KV_FIELD.get(cfg.family, "kv"))
+
+
 def flush_state(cfg: ModelConfig, state, *, runtime: str = "retro",
                 rows=None):
-    """Decode-time segmented-clustering index update of every layer (rows
-    default to those whose staging buffer is full). A no-op for the dense
-    cache of the full runtime."""
-    _attention_family(cfg)
-    if runtime != "retro":
+    """Decode-time segmented-clustering index update of every wave state
+    (rows default to those whose staging buffer is full). A no-op for the
+    dense caches of the full runtime and for recurrent states."""
+    _family(cfg)
+    if runtime != "retro" or cfg.family == "ssm":
         return state
-    return state._replace(kv=[flush_segment(st, cfg.retro, rows=rows)
-                              for st in state.kv])
+    return state._replace(**{KV_FIELD.get(cfg.family, "kv"): [
+        flush_segment(st, cfg.retro, rows=rows)
+        for st in kv_states(cfg, state)]})
 
 
 def needs_flush(cfg: ModelConfig, appended_since_flush: int) -> bool:
@@ -157,8 +203,14 @@ def needs_flush(cfg: ModelConfig, appended_since_flush: int) -> bool:
 def make_serve_state(cfg: ModelConfig, B: int, seq_len: int, *,
                      runtime: str = "retro", gen_headroom: int = 4096,
                      zero_fill: bool = False, device=None):
-    _attention_family(cfg)
-    return transformer.init_serve_state(cfg, B, seq_len, runtime=runtime,
-                                        gen_headroom=gen_headroom,
-                                        zero_fill=zero_fill,
-                                        device=resolve_device(device))
+    """Zero serve state with the structure a prefill gives; ``zero_fill``:
+    every per-row counter at zero (an all-free batch awaiting grafts)."""
+    _family(cfg)
+    dev = resolve_device(device)
+    if cfg.family == "ssm":
+        return rwkv6.init_serve_state(cfg, B, dev)
+    init = {"hybrid": hybrid.init_serve_state,
+            "audio": encdec.init_serve_state}.get(
+                cfg.family, transformer.init_serve_state)
+    return init(cfg, B, seq_len, runtime=runtime, gen_headroom=gen_headroom,
+                zero_fill=zero_fill, device=dev)

@@ -51,12 +51,6 @@ def layer_windows(cfg: ModelConfig) -> List[float]:
 # init
 # ---------------------------------------------------------------------------
 
-def _dense(gen, shape, dtype, device, scale=None):
-    scale = 1.0 / math.sqrt(shape[0]) if scale is None else scale
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
-
-
 def init_transformer(cfg: ModelConfig, generator: torch.Generator,
                      device) -> Dict[str, Any]:
     """Random parameters with the reference's distributions: normal scaled
@@ -66,22 +60,18 @@ def init_transformer(cfg: ModelConfig, generator: torch.Generator,
     a, d, dt = cfg.attn, cfg.d_model, torch_dtype(cfg)
 
     def dense(shape, scale=None):
-        return _dense(generator, shape, dt, device, scale)
+        return L.dense_init(generator, shape, dt, device, scale)
 
     layers = []
     for _ in range(cfg.n_layers):
         lp = {"ln1": torch.zeros((d,), dtype=dt, device=device),
               "ln2": torch.zeros((d,), dtype=dt, device=device),
-              "attn": {"wq": dense((d, a.n_heads * a.head_dim)),
-                       "wk": dense((d, a.n_kv_heads * a.head_dim)),
-                       "wv": dense((d, a.n_kv_heads * a.head_dim)),
-                       "wo": dense((a.n_heads * a.head_dim, d))}}
+              "attn": L.init_attention(generator, d, a.n_heads, a.n_kv_heads,
+                                       a.head_dim, dt, device)}
         if cfg.moe is not None:
             lp["moe"] = init_moe(generator, d, cfg.moe, dt, device)
         else:
-            lp["mlp"] = {"w_gate": dense((d, cfg.d_ff)),
-                         "w_up": dense((d, cfg.d_ff)),
-                         "w_down": dense((cfg.d_ff, d))}
+            lp["mlp"] = L.init_mlp(generator, d, cfg.d_ff, dt, device)
         layers.append(lp)
     params = {"embed": dense((cfg.vocab, d), scale=d ** -0.5),
               "layers": layers, "window": layer_windows(cfg),
@@ -122,6 +112,28 @@ def _ffn(lp, x, cfg: ModelConfig):
     return L.mlp_apply(lp["mlp"], x, cfg.act)
 
 
+def build_kv(cfg: ModelConfig, k, v, *, runtime: str, plan: ZonePlan,
+             total: int, lengths: Optional[torch.Tensor] = None):
+    """One attention layer's serve state from its prompt K/V (B, T, Hkv,
+    hd), post-RoPE: the wave index (retro) or a dense cache of ``total``
+    slots holding the prompt (full). ``lengths``: optional (B,) true
+    lengths of right-padded rows."""
+    B, T = k.shape[:2]
+    dt = torch_dtype(cfg)
+    if runtime == "retro":
+        return prefill_build(k, v, cfg.retro, plan.m_max, dtype=dt,
+                             lengths=lengths)
+    if total < T:
+        raise ValueError(f"cache length {total} below the prompt length {T}")
+    cache = wa.init_dense_cache(B, k.shape[2], total, k.shape[3], dt,
+                                k.device)
+    cache.k[:, :, :T] = k.transpose(1, 2)
+    cache.v[:, :, :T] = v.transpose(1, 2)
+    return cache._replace(
+        length=torch.full((B,), T, dtype=torch.int32, device=k.device)
+        if lengths is None else lengths.clone())
+
+
 class ServeState(NamedTuple):
     """Per-layer KV state of the decode batch: ``WaveState``s (retro
     runtime) or ``DenseCache``s (full runtime)."""
@@ -147,7 +159,7 @@ def prefill(params, cfg: ModelConfig, tokens, patch_embeds=None, *,
     block-sparse attention instead of the dense flash attention.
     ``patch_embeds``: (B, P, D) vlm patch embeddings of the first P
     positions."""
-    a, retro, dt = cfg.attn, cfg.retro, torch_dtype(cfg)
+    a, retro = cfg.attn, cfg.retro
     x = embed_tokens(params, cfg, tokens, patch_embeds)
     B, T, _ = x.shape
     dev = tokens.device
@@ -157,8 +169,6 @@ def prefill(params, cfg: ModelConfig, tokens, patch_embeds=None, *,
     lens = None if lengths is None else lengths.to(device=dev,
                                                    dtype=torch.int32)
     total = cache_len if cache_len is not None else T + gen_headroom
-    if total < T:
-        raise ValueError(f"cache length {total} below the prompt length {T}")
     use_sparse = cfg.sparse_prefill_blocks > 0 and T % 128 == 0
     kv = []
     for lp, window in zip(params["layers"], params["window"]):
@@ -175,17 +185,8 @@ def prefill(params, cfg: ModelConfig, tokens, patch_embeds=None, *,
         x = x + o.reshape(B, T, -1) @ lp["attn"]["wo"]
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + _ffn(lp, h, cfg)
-        if runtime == "retro":
-            kv.append(prefill_build(k, v, retro, plan.m_max, dtype=dt,
-                                    lengths=lens))
-        else:
-            cache = wa.init_dense_cache(B, a.n_kv_heads, total, a.head_dim,
-                                        dt, dev)
-            cache.k[:, :, :T] = k.transpose(1, 2)
-            cache.v[:, :, :T] = v.transpose(1, 2)
-            kv.append(cache._replace(
-                length=torch.full((B,), T, dtype=torch.int32, device=dev)
-                if lens is None else lens.clone()))
+        kv.append(build_kv(cfg, k, v, runtime=runtime, plan=plan,
+                           total=total, lengths=lens))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if lens is None:
         last = x[:, -1]
@@ -472,31 +473,33 @@ def offload_flush(cfg: ModelConfig, lives: List[Dict], rows):
     return new, blocks
 
 
+def init_kv_state(cfg: ModelConfig, B: int, seq_len: int, *, runtime: str,
+                  gen_headroom: int, zero_fill: bool, device):
+    """One attention layer's zero serve state with the structure a prefill
+    of ``seq_len`` tokens gives. ``zero_fill=True`` leaves every per-row
+    counter at zero (an all-free continuous batch awaiting per-slot grafts)
+    instead of pretending each row holds a full ``seq_len`` context."""
+    a, retro, dt = cfg.attn, cfg.retro, torch_dtype(cfg)
+    full = lambda n: torch.full((B,), n, dtype=torch.int32, device=device)
+    if runtime == "retro":
+        plan = plan_zones(seq_len, retro, gen_headroom)
+        st = init_wave_state(B, a.n_kv_heads, a.head_dim, plan.m_max, retro,
+                             dt, device)
+        if not zero_fill:
+            st = st._replace(length=full(seq_len), local_len=full(retro.local),
+                             n_clusters=full(plan.m_max))
+        return st
+    st = wa.init_dense_cache(B, a.n_kv_heads, seq_len + gen_headroom,
+                             a.head_dim, dt, device)
+    return st if zero_fill else st._replace(length=full(seq_len))
+
+
 def init_serve_state(cfg: ModelConfig, B: int, seq_len: int, *,
                      runtime: str = "retro", gen_headroom: int = 4096,
                      zero_fill: bool = False, device="cuda") -> ServeState:
-    """Zero-initialised serve state with the structure a prefill gives.
-    ``zero_fill=True`` leaves every per-row counter at zero (an all-free
-    continuous batch awaiting per-slot grafts) instead of pretending each
-    row holds a full ``seq_len`` context."""
-    a, retro, dt = cfg.attn, cfg.retro, torch_dtype(cfg)
-    plan = plan_zones(seq_len, retro, gen_headroom)
-    kv = []
-    for _ in range(cfg.n_layers):
-        if runtime == "retro":
-            st = init_wave_state(B, a.n_kv_heads, a.head_dim, plan.m_max,
-                                 retro, dt, device)
-            if not zero_fill:
-                full = lambda n: torch.full((B,), n, dtype=torch.int32,
-                                            device=device)
-                st = st._replace(length=full(seq_len),
-                                 local_len=full(retro.local),
-                                 n_clusters=full(plan.m_max))
-        else:
-            st = wa.init_dense_cache(B, a.n_kv_heads, seq_len + gen_headroom,
-                                     a.head_dim, dt, device)
-            if not zero_fill:
-                st = st._replace(length=torch.full(
-                    (B,), seq_len, dtype=torch.int32, device=device))
-        kv.append(st)
-    return ServeState(kv=kv)
+    """Zero-initialised serve state with the structure a prefill gives
+    (``init_kv_state`` per layer)."""
+    return ServeState(kv=[init_kv_state(cfg, B, seq_len, runtime=runtime,
+                                        gen_headroom=gen_headroom,
+                                        zero_fill=zero_fill, device=device)
+                          for _ in range(cfg.n_layers)])

@@ -1,5 +1,9 @@
 """Continuous-batching serving engine with chunked or blocking admission
 and a decode loop that reads ids back once per step, one step late.
+Serves every family: the attention families (dense, moe, vlm) under both
+admissions; ssm, hybrid and audio admit blocking only (recurrent prefills
+and the enc-dec decoder consume a prompt in one pass, unpadded), as in the
+reference.
 
 Port of ``repro/serving/engine.py``: both serve runtimes ("retro", the wave
 index; "full", a dense KV cache), both admission modes, every
@@ -54,7 +58,7 @@ from repro_torch.core.zones import plan_zones
 from repro_torch.models import model as M
 from repro_torch.models.transformer import (LIVE_FIELDS, ServeState,
                                             torch_dtype)
-from repro_torch.serving.graphs import DecodeGraph, OffloadStage
+from repro_torch.serving.graphs import DecodeGraph, OffloadStage, leaves
 
 
 @dataclass
@@ -64,7 +68,9 @@ class Request:
     out_tokens: List[int] = field(default_factory=list)
     done: bool = False
     # per-request prefill extras, (1, ...) tensors or arrays: for vlm
-    # {"patch_embeds": (1, P, D)}, handed to every prefill call of the request
+    # {"patch_embeds": (1, P, D)}, for audio {"frames": (1, F, D)} (the
+    # stubbed frontend's frame embeddings), handed to every prefill call of
+    # the request
     extra: Optional[Dict] = None
     # ---- filled by the engine ----
     ttft_s: float = 0.0                 # enqueue -> first token
@@ -224,10 +230,10 @@ def _extras(req: Request, dev: torch.device) -> Dict[str, torch.Tensor]:
 
 def graft(big, small, slot: int):
     """Copy the single-row serve state ``small`` into row ``slot`` of the
-    batch state ``big``, in place (the reference donates ``big``)."""
-    for bst, sst in zip(big.kv, small.kv):
-        for b, s in zip(bst, sst):
-            b[slot:slot + 1].copy_(s)
+    batch state ``big``, in place (the reference donates ``big``). Every
+    leaf of every family's state has its batch axis first."""
+    for b, s in zip(leaves(big), leaves(small), strict=True):
+        b[slot:slot + 1].copy_(s)
     return big
 
 
@@ -586,7 +592,6 @@ class ServeEngine:
         if admission not in ("chunked", "blocking"):
             raise ValueError(f"unknown admission mode {admission!r}")
         self.device = resolve_device(device)
-        M._attention_family(cfg)
         self.attn_impl = resolve_attn_impl(attn_impl or cfg.retro.attn_impl)
         self.cfg = cfg
         self.params = params
@@ -618,9 +623,11 @@ class ServeEngine:
     def _bucket(self, L: int) -> int:
         """Blocking admission's prefill length for an L-token prompt: L
         rounded up to a multiple of ``prefill_bucket``; prompts shorter than
-        sink + local are too short to mask a ragged tail and keep L."""
+        sink + local are too short to mask a ragged tail and keep L, and so
+        do the non-attention families (recurrent prefills consume pads)."""
         retro = self.cfg.retro
-        if L < retro.sink + retro.local:
+        if self.cfg.family not in M.ATTN_FAMILIES \
+                or L < retro.sink + retro.local:
             return L
         b = self.prefill_bucket
         return L if b <= 1 else ((L + b - 1) // b) * b
@@ -663,7 +670,8 @@ class ServeEngine:
             raise ValueError("no requests")
         max_ctx = self.max_context or max(self._bucket(len(r.prompt))
                                           for r in requests)
-        min_len = cfg.retro.sink + 1 if rt == "retro" else 1
+        min_len = cfg.retro.sink + 1 \
+            if rt == "retro" and cfg.family != "ssm" else 1
         for r in requests:
             if not min_len <= len(r.prompt) <= max_ctx:
                 raise ValueError(f"prompt length {len(r.prompt)} outside "
@@ -674,12 +682,13 @@ class ServeEngine:
         chunked = self.admission == "chunked" \
             and M.supports_chunked_prefill(cfg, rt) \
             and cfg.sparse_prefill_blocks == 0
-        plan = plan_zones(max_ctx, cfg.retro, self.gen_headroom)
+        plan = plan_zones(max_ctx, cfg.retro, self.gen_headroom) \
+            if cfg.family != "ssm" else None
         state = M.make_serve_state(cfg, B, max_ctx, runtime=rt,
                                    gen_headroom=self.gen_headroom,
                                    zero_fill=True, device=dev)
         lbuf = local_buffer_size(cfg.retro)
-        use_flush = rt == "retro"
+        use_flush = rt == "retro" and cfg.family != "ssm"
         plane = _OffloadPlane(self, B, max_ctx) if self.offload else None
 
         queue = deque(requests)
@@ -732,10 +741,14 @@ class ServeEngine:
                     toks[0, :L] = req.prompt
                     batch = {"tokens": to_device(toks, dev),
                              **_extras(req, dev)}
+                    # recurrent prefills take no ragged lengths (and
+                    # _bucket never pads them)
+                    lengths = to_device(np.array([L], np.int32), dev) \
+                        if cfg.family in M.ATTN_FAMILIES else None
                     logits, st1 = M.apply_prefill(
                         self.params, cfg, batch,
                         runtime=rt, plan=plan, gen_headroom=self.gen_headroom,
-                        lengths=to_device(np.array([L], np.int32), dev),
+                        lengths=lengths,
                         cache_len=max_ctx + self.gen_headroom)
                     metrics.prefill_tokens += L
                     state = graft(state, st1, i)

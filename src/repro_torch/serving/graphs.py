@@ -45,17 +45,19 @@ from repro_torch.models import model as M
 from repro_torch.models.transformer import LIVE_FIELDS
 
 
-def _leaves(tree):
+def leaves(tree):
+    """Every tensor of a serve state, in order: the state NamedTuples of
+    every family and their per-layer lists are walked as tuples."""
     if isinstance(tree, torch.Tensor):
         yield tree
     elif isinstance(tree, (list, tuple)):
         for t in tree:
-            yield from _leaves(t)
+            yield from leaves(t)
 
 
 def state_addresses(state) -> Tuple[int, ...]:
     """The ``data_ptr`` of every tensor of a serve state, in order."""
-    return tuple(t.data_ptr() for t in _leaves(state))
+    return tuple(t.data_ptr() for t in leaves(state))
 
 
 class DecodeGraph:

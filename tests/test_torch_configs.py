@@ -79,3 +79,32 @@ def test_moe_config_fields_match():
         [(f.name, f.default) for f in dataclasses.fields(RefMoE)]
     assert dataclasses.asdict(MoEConfig(8, 2, 16384)) == \
         dataclasses.asdict(RefMoE(8, 2, 16384))
+
+
+@pytest.mark.parametrize("which", ["CONFIG", "reduced"])
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "rwkv6_3b", "whisper_tiny"])
+def test_non_attention_config_fields_match(arch, which):
+    """The hybrid (zamba2), ssm (rwkv6) and audio (whisper) configs,
+    published and reduced, field-equal to the reference's (``ssm`` an
+    ``SSMConfig`` with the reference's fields), under both their names."""
+    port = registry.get_config(arch) if which == "CONFIG" \
+        else registry.reduced_config(arch)
+    ref = ref_registry.get_config(arch) if which == "CONFIG" \
+        else ref_registry.reduced_config(arch)
+    assert [f.name for f in dataclasses.fields(port)] == \
+        [f.name for f in dataclasses.fields(ref)]
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.layer_kinds() == ref.layer_kinds()
+    alias = {"zamba2_1p2b": "zamba2-1.2b", "rwkv6_3b": "rwkv6-3b",
+             "whisper_tiny": "whisper-tiny"}[arch]
+    assert registry.ALIASES[alias] == arch
+    assert (registry.get_config(alias) if which == "CONFIG"
+            else registry.reduced_config(alias)) == port
+
+
+def test_ssm_config_fields_match():
+    from repro.configs.base import SSMConfig as RefSSM
+    from repro_torch.configs.base import SSMConfig
+    assert [(f.name, f.default) for f in dataclasses.fields(SSMConfig)] == \
+        [(f.name, f.default) for f in dataclasses.fields(RefSSM)]
+

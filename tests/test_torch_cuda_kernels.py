@@ -2,8 +2,9 @@
 ``cuda``; skipped without a card: a CUDA kernel has no CPU mode): the paged
 and the gathered-buffer wave attention (including many splits, several
 tiles per split through the cp.async ring, an all-empty row, the same
-bits from two calls, group sizes mixed in one process, and G 3, 5, 6 and 7
-between the powers of two), the block gather (chunked blocks,
+bits from two calls, group sizes mixed in one process, G 3, 5, 6 and 7
+between the powers of two, and G 1 at hd 64 at the shapes zamba2-1.2b and
+whisper-tiny serve), the block gather (chunked blocks,
 out-of-range ids, refused views) and the k-means step (ragged tiles, exact
 ties, bit-equal sums run to run). Imports no JAX, so it also runs on a
 machine with the card and without JAX:
@@ -172,6 +173,47 @@ def test_cuda_attention_at_group_sizes_between_powers_of_two(cuda, op, G, hd,
     torch.cuda.synchronize()
     ref = plain(*args, softcap=50.0)
     assert out.shape == ref.shape and out.shape[2] == G
+    assert (out - ref).abs().max().item() <= \
+        2e-5 * (1 + ref.abs().max().item())
+    assert torch.equal(out, again)
+
+
+def _served_g1_inputs(op, H, ctx, q_pos, local_len):
+    """Inputs at a G-1, hd-64 model's served decode geometry, sized by the
+    default RetroConfig's plan at ``ctx`` tokens (gen headroom 1024, the
+    engine's): zamba2-1.2b's shared-attention sites (32 KV heads) at 8192
+    tokens, whisper-tiny's decoder (6) at its 448-token context."""
+    from repro_torch.configs.base import RetroConfig
+    from repro_torch.core.zones import plan_zones
+    retro = RetroConfig()
+    plan = plan_zones(ctx, retro, 1024)
+    if op == "paged_wave_attention":
+        return random_decode_inputs(
+            B=2, H=H, G=1, hd=64, M=plan.m_max, cap=retro.cluster_cap,
+            sink=retro.sink, lbuf=plan.local_buf, r=plan.r, e=plan.e,
+            q_pos=q_pos, local_len=local_len, device="cuda")
+    return random_merge_inputs(
+        B=2, H=H, G=1, hd=64,
+        T=retro.sink + plan.local_buf + plan.r * retro.cluster_cap,
+        E=plan.e + plan.r, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["zamba2", "whisper"])
+@pytest.mark.parametrize("op", ["paged_wave_attention", "wave_attention_merge"])
+def test_cuda_attention_at_served_g1_geometries(cuda, op, model):
+    """Both attention kernels at G 1, hd 64, bf16 stores, at the decode
+    shapes zamba2-1.2b (H 32) and whisper-tiny (H 6) serve, against their
+    twins within the kernels' gate, the same bits from two calls."""
+    args = _served_g1_inputs(op, *dict(
+        zamba2=(32, 8192, (8200, 6010), (72, 1088)),
+        whisper=(6, 448, (460, 310), (76, 60)))[model])
+    kern, plain = getattr(ops, op), getattr(ops, op + "_plain")
+    out = kern(*args, softcap=None)
+    again = kern(*args, softcap=None)
+    torch.cuda.synchronize()
+    ref = plain(*args, softcap=None)
+    assert out.shape == ref.shape and out.shape[2] == 1
     assert (out - ref).abs().max().item() <= \
         2e-5 * (1 + ref.abs().max().item())
     assert torch.equal(out, again)
