@@ -102,7 +102,21 @@
    1500 seeded bf16 stub frames a request; G 1, hd 64) with 448- and
    300-token decoder prompts through the paged kernel and under
    ``runtime="full"``: launches = 4 layers x steps, a captured launch
-   against the twin, the breakdown, replay == eager, reduced card vs CPU.
+   against the twin, the breakdown, replay == eager, reduced card vs CPU;
+17. trains: reduced gemma2-2b in f32 on the card against the CPU (loss,
+   every grad leaf, one AdamW step of the same grads) and a checkpoint
+   round trip bit for bit; gemma2-2b at full width and depth in bf16,
+   8 steps of ``train`` at B 2 x T 1024 (loss and grad norm finite every
+   step; synced ms a step, tokens/s, the loss curve, peak memory beside
+   its reckoning and the step beside its compute bound); one step of
+   zamba2-1.2b at full width (T 512: the chunked remat of the scan). No
+   hand-written kernel runs: attention is ``flash_attention_jnp`` in plain
+   torch, as in the reference, which has no backward kernel;
+18. serves full-width gemma2-2b through the paged kernel at temperature
+   0.7 (blocking admission, 8192 / 6000 tokens generating 32 / 24): the
+   main path's checks, the captured sampled step replayed equal to eager
+   with the generator rewound, one seed twice the same tokens, and
+   ``temperature=0`` the greedy engine's tokens.
 
 Every serve run above decodes through ``ServeEngine``'s compiled stages:
 the first step of the run eagerly, the rest as replays of one captured
@@ -603,10 +617,11 @@ class LaunchTap:
         return out
 
 
-def tapped_serve(engine, reqs, batch, tap):
-    """``engine.serve`` with ``tap`` in place of ``core.attention``'s ops
-    module, every kernel's launch count set to 0 just before; returns the
-    metrics, the wall seconds and the served launches (``LaunchTap``)."""
+def tapped_serve(engine, reqs, batch, tap, seed=0):
+    """``engine.serve`` (sampler seeded with ``seed``) with ``tap`` in place
+    of ``core.attention``'s ops module, every kernel's launch count set to
+    0 just before; returns the metrics, the wall seconds and the served
+    launches (``LaunchTap``)."""
     import torch
     from repro_torch.core import attention
     real_ops, real_gather = attention.wa_ops, attention._gather_clusters
@@ -615,7 +630,7 @@ def tapped_serve(engine, reqs, batch, tap):
     attention._gather_clusters = getattr(tap, "gather", real_gather)
     try:
         t0 = time.perf_counter()
-        m = engine.serve(reqs, batch_size=batch)
+        m = engine.serve(reqs, batch_size=batch, seed=seed)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -763,7 +778,8 @@ def frame_extra(cfg, seed, device="cuda"):
 def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
                     runtime="retro", admission="chunked", chunk=256,
                     batch=2, device="cuda", seed=0, min_capture_pos=4096,
-                    want_flush=True, params=None, patches=0):
+                    want_flush=True, params=None, patches=0,
+                    temperature=None, serve_seed=0):
     """Drive the port's main path: ServeEngine with ``admission``
     ("chunked" or "blocking") and ``runtime`` ("retro": decode through
     ``attn_impl``, "fused" or "pallas"; "full": the dense cache, no kernel);
@@ -773,7 +789,9 @@ def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
     first ``patches`` positions (vlm, ``Request.extra``); an audio
     family's requests get seeded frame embeddings (``frame_extra``). The
     attention launches are counted per attention layer (``attn_kinds``:
-    a hybrid's sites, a decoder's layers; none for ssm)."""
+    a hybrid's sites, a decoder's layers; none for ssm). ``temperature``
+    (None: the engine's default, greedy) samples every token from a
+    generator seeded with ``serve_seed``."""
     import numpy as np
     import torch
     from repro_torch.core import attention
@@ -797,7 +815,9 @@ def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
             for i, (n, m) in enumerate(zip(prompt_lens, new_tokens))]
     engine = ServeEngine(cfg, params, prefill_chunk=chunk, device=device,
                          attn_impl=attn_impl, runtime=runtime,
-                         admission=admission)
+                         admission=admission,
+                         **({} if temperature is None
+                            else {"temperature": temperature}))
     if engine.attn_impl != attn_impl:
         raise AssertionError(f"engine resolved {engine.attn_impl}")
     kinds = attn_kinds(cfg)
@@ -806,7 +826,7 @@ def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    m, wall, counts = tapped_serve(engine, reqs, batch, cap)
+    m, wall, counts = tapped_serve(engine, reqs, batch, cap, serve_seed)
     peak = torch.cuda.max_memory_allocated()
     path = IMPL_KERNEL[attn_impl] if runtime == "retro" and n_attn else None
     if path is not None:
@@ -864,7 +884,8 @@ def serve_main_path(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
                itl_p50_ms=m.itl_p50_s * 1e3, itl_p99_ms=m.itl_p99_s * 1e3,
                peak_mem_gib=peak / 2**30, held_before_gib=held / 2**30,
                graph_captures=graph.captures,
-               graph_replays=graph.replays)
+               graph_replays=graph.replays, temperature=engine.temperature,
+               tokens=[list(map(int, r.out_tokens)) for r in reqs])
     log(f"  {cfg.arch_id} {runtime}/{admission}/{attn_impl}: decode steps "
         f"{m.steps} (1 warm-up + {graph.replays} replays of "
         f"{graph.captures} captured graph), launches {counts} "
@@ -1524,7 +1545,7 @@ def serve_offload(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
     attention.wa_ops = cap
     try:
         t0 = time.perf_counter()
-        m = engine.serve(reqs, batch_size=batch)
+        m = engine.serve(reqs, batch_size=batch, seed=seed)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -2411,6 +2432,415 @@ def run_families(results):
     return out
 
 
+# ---------------------------------------------------------------------------
+# training (phase 17) and sampling (phase 18)
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS = 989e12                # H100 SXM, bf16 tensor cores, dense
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 2, 1024, 8
+
+
+def _to_device(state, device):
+    """A ``TrainState`` copied to ``device`` (grad flags kept)."""
+    from repro_torch.training.optimizer import tree_map
+    return tree_map(lambda t: t.detach().to(device).requires_grad_(
+        t.requires_grad), state)
+
+
+def _tree_err(got, want, per_leaf_max):
+    """max over leaves of |got - want| / (1 + |want|) (elementwise) or
+    / (1 + max |want|) (``per_leaf_max``), on the CPU in f64."""
+    from repro_torch.training.optimizer import tree_leaves
+    err = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g, w = g.detach().cpu().double(), w.detach().cpu().double()
+        scale = 1 + (w.abs().max() if per_leaf_max else w.abs())
+        err = max(err, float(((g - w).abs() / scale).max()))
+    return err
+
+
+def training_across_devices(seed=0, B=2, T=256):
+    """Phase 17a: reduced gemma2-2b in f32 on the card against the same
+    model on the CPU, from one initial state and one batch: the loss within
+    1e-5 (1 + |cpu|), every grad leaf within 1e-4 (1 + max |cpu|), and one
+    AdamW step of the card's grads on each device (parameters and moments
+    within 1e-5 (1 + |cpu|)); then a checkpoint of the card's state
+    written and restored bit for bit."""
+    import shutil
+    import torch
+    from repro_torch.configs.gemma2_2b import reduced
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
+                                                tree_leaves, tree_map)
+    from repro_torch.training.train_loop import (batch_to_device,
+                                                 init_train_state,
+                                                 loss_and_grads)
+    cfg = reduced()
+    cpu = init_train_state(cfg, torch.Generator().manual_seed(seed), "cpu")
+    card = _to_device(cpu, "cuda")
+    batch = next(lm_batches(cfg, B, T, seed=seed))
+    loss_c, g_c = loss_and_grads(cfg, cpu.params,
+                                 batch_to_device(batch, "cpu"))
+    loss_g, g_g = loss_and_grads(cfg, card.params,
+                                 batch_to_device(batch, "cuda"))
+    res = dict(loss_cpu=float(loss_c), loss_card=float(loss_g))
+    res["loss_err"] = abs(res["loss_card"] - res["loss_cpu"]) \
+        / (1 + abs(res["loss_cpu"]))
+    res["grad_err"] = _tree_err(g_g, g_c, per_leaf_max=True)
+    opt = AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=20)
+    adamw_update(opt, g_g, card.opt, card.params)
+    adamw_update(opt, tree_map(lambda t: t.cpu(), g_g), cpu.opt, cpu.params)
+    res["step_param_err"] = _tree_err(card.params, cpu.params, False)
+    res["step_moment_err"] = max(_tree_err(card.opt.mu, cpu.opt.mu, False),
+                                 _tree_err(card.opt.nu, cpu.opt.nu, False))
+    path = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(path, ignore_errors=True)
+    ckpt.save(str(path), card, step=1)
+    restored, step = ckpt.restore(str(path), card)
+    shutil.rmtree(path)
+    a, b = tree_leaves(card), tree_leaves(restored)
+    res["checkpoint_leaves"] = len(a)
+    res["checkpoint_bit_equal"] = step == 1 and len(a) == len(b) and all(
+        x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)
+        for x, y in zip(a, b))
+    log(f"  reduced gemma2-2b f32, card vs CPU: loss {res['loss_card']:.6f} "
+        f"vs {res['loss_cpu']:.6f} (err {res['loss_err']:.2e}, tol 1e-5), "
+        f"grads {res['grad_err']:.2e} (tol 1e-4), AdamW step params "
+        f"{res['step_param_err']:.2e} / moments {res['step_moment_err']:.2e}"
+        f" (tol 1e-5); checkpoint of {len(a)} leaves round trip bit-equal "
+        f"{res['checkpoint_bit_equal']}")
+    if not (res["loss_err"] <= 1e-5 and res["grad_err"] <= 1e-4
+            and res["step_param_err"] <= 1e-5
+            and res["step_moment_err"] <= 1e-5
+            and res["checkpoint_bit_equal"]):
+        raise AssertionError(f"training card vs cpu: {res}")
+    return res
+
+
+def train_full_width(cfg, steps=TRAIN_STEPS, B=TRAIN_B, T=TRAIN_T, seed=0):
+    """Phase 17b: ``train`` at full width and depth in bf16 on
+    ``lm_batches(seed=0)`` (made before the clock starts), metrics read
+    back every step: each step's synced wall time, tokens/s over the steps
+    after the first, the loss curve, peak memory beside its reckoning and
+    the step beside its compute bound (6 x params x tokens at the card's
+    dense bf16 peak)."""
+    import math
+    import torch
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.training.optimizer import AdamWConfig, tree_leaves
+    from repro_torch.training.train_loop import init_train_state, train
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, torch.Generator(device="cuda")
+                             .manual_seed(seed), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in tree_leaves(state.params))
+    data = lm_batches(cfg, B, T, seed=0)
+    batches = [next(data) for _ in range(steps)]
+    stamps, hist = [], []
+
+    def stamp(i, m):                    # after the step's metrics readback
+        stamps.append(time.perf_counter())
+        hist.append(m)
+
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    state, _ = train(cfg, AdamWConfig(lr=3e-4, warmup_steps=2,
+                                      total_steps=steps),
+                     iter(batches), steps, log_every=1, callback=stamp,
+                     device="cuda", state=state)
+    step_ms = [(b - a) * 1e3 for a, b in zip([t_start] + stamps, stamps)]
+    peak = torch.cuda.max_memory_allocated()
+    later = step_ms[1:]
+    tok_s = B * T * len(later) / (sum(later) / 1e3)
+    bound_ms = 6 * n * B * T / BF16_FLOPS * 1e3
+    gb = 1e9
+    reck = dict(params_gb=2 * n / gb, grads_gb=2 * n / gb,
+                moments_gb=8 * n / gb, logits_f32_gb=4 * B * T * cfg.vocab
+                / gb)
+    reck["state_gb"] = reck["params_gb"] + reck["grads_gb"] \
+        + reck["moments_gb"]
+    res = dict(arch=cfg.arch_id, params=n, batch=B, seq=T, steps=steps,
+               init_s=init_s, step_ms=step_ms,
+               step_ms_mean_after_first=sum(later) / len(later),
+               tokens_per_s=tok_s, loss=[m["loss"] for m in hist],
+               grad_norm=[m["grad_norm"] for m in hist],
+               lr=[m["lr"] for m in hist], peak_mem_gb=peak / gb,
+               held_before_gb=held / gb, reckoning=reck,
+               compute_bound_ms=bound_ms,
+               flops_per_step=6 * n * B * T)
+    log(f"  {cfg.arch_id} bf16, {n / 1e9:.3f} B params, B {B} x T {T}: "
+        f"init {init_s:.1f} s; step ms {['%.1f' % t for t in step_ms]}; "
+        f"mean after step 0 {res['step_ms_mean_after_first']:.1f} ms "
+        f"(compute bound {bound_ms:.1f} ms: 6 x {n / 1e9:.3f}e9 x {B * T} "
+        f"= {6 * n * B * T:.3e} FLOP at {BF16_FLOPS / 1e12:.0f} TFLOP/s "
+        f"bf16); {tok_s:.0f} tokens/s")
+    log(f"  loss {['%.4f' % l for l in res['loss']]}; grad norm "
+        f"{['%.3f' % g for g in res['grad_norm']]}")
+    log(f"  peak memory {peak / gb:.2f} GB ({held / gb:.2f} held before); "
+        f"reckoning: bf16 params {reck['params_gb']:.1f} + bf16 grads "
+        f"{reck['grads_gb']:.1f} + f32 moments {reck['moments_gb']:.1f} = "
+        f"{reck['state_gb']:.1f} GB, + f32 logits {reck['logits_f32_gb']:.1f}"
+        f" GB a copy, + one layer's recompute: expected 40-50 GB")
+    bad = [i for i, m in enumerate(hist)
+           if not (math.isfinite(m["loss"]) and m["loss"] > 0
+                   and math.isfinite(m["grad_norm"]) and m["grad_norm"] > 0)]
+    if bad or len(hist) != steps:
+        raise AssertionError(f"training steps {bad} not finite and positive: "
+                             f"{hist}")
+    res["breakdown"] = train_breakdown(cfg, state, batches[0])
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+KERNEL_GROUPS = (("gemm", ("gemm", "xmma", "cutlass", "sm90", "nvjet")),
+                 ("softmax", ("softmax",)),
+                 ("reduce", ("reduce",)),
+                 ("index", ("index", "scatter", "gather", "embedding")),
+                 ("copy", ("copy", "cat", "fill")))
+
+
+def _kernel_group(name):
+    low = name.lower()
+    for group, keys in KERNEL_GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "elementwise/other"
+
+
+def train_breakdown(cfg, state, batch, steps=2):
+    """Where a training step's time goes, after ``train``: the host's time
+    to enqueue a step (no sync) against the synced wall, the device's
+    kernel time by group over one profiled step, and the AdamW update
+    alone (enqueue and synced wall) on one step's grads."""
+    import torch
+    from repro_torch.training.optimizer import AdamWConfig, adamw_update
+    from repro_torch.training.train_loop import (batch_to_device,
+                                                 loss_and_grads,
+                                                 make_train_step)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=8)
+    step = make_train_step(cfg, opt)
+    tb = batch_to_device(batch, "cuda")
+    enq, wall = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, tb)
+        enq.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    rows, prof_wall = _profile_rows(lambda: step(state, tb), 1)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    groups = {}
+    for us, name, count in rows:
+        g = groups.setdefault(_kernel_group(name), [0.0, 0])
+        g[0] += us / 1e3
+        g[1] += count
+    _, grads = loss_and_grads(cfg, state.params, tb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adamw_update(opt, grads, state.opt, state.params)
+    opt_enq = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    opt_wall = time.perf_counter() - t0
+    del grads
+    res = dict(enqueue_ms=1e3 * sum(enq) / steps,
+               wall_ms=1e3 * sum(wall) / steps,
+               profiled_wall_ms=prof_wall * 1e3, device_busy_ms=busy_ms,
+               kernels=sum(r[2] for r in rows),
+               groups={k: dict(ms=v[0], kernels=v[1])
+                       for k, v in sorted(groups.items(),
+                                          key=lambda kv: -kv[1][0])},
+               top=[(round(us / 1e3, 3), name[:80], n)
+                    for us, name, n in rows[:10]],
+               adamw_enqueue_ms=opt_enq * 1e3, adamw_wall_ms=opt_wall * 1e3)
+    log(f"  one step: host enqueue {res['enqueue_ms']:.1f} ms, synced wall "
+        f"{res['wall_ms']:.1f} ms; profiled: device busy {busy_ms:.1f} ms of "
+        f"{res['profiled_wall_ms']:.1f} ms, {res['kernels']} kernels; AdamW "
+        f"alone: enqueue {res['adamw_enqueue_ms']:.1f} ms, synced "
+        f"{res['adamw_wall_ms']:.1f} ms")
+    log("  device ms by group: " + ", ".join(
+        f"{k} {v['ms']:.1f} ({v['kernels']})"
+        for k, v in res["groups"].items()))
+    for ms, name, n in res["top"]:
+        log(f"    {ms:9.3f} ms  x{n:<5d} {name}")
+    return res
+
+
+def train_one_step(cfg, B=1, T=512, seed=0):
+    """Phase 17c: one ``make_train_step`` step at full width (T 512: the
+    recurrences' chunked remat runs, two 256-step chunks), synced."""
+    import math
+    import torch
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.training.optimizer import AdamWConfig, tree_leaves
+    from repro_torch.training.train_loop import (batch_to_device,
+                                                 init_train_state,
+                                                 make_train_step)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, torch.Generator(device="cuda")
+                             .manual_seed(seed), "cuda")
+    n = sum(p.numel() for p in tree_leaves(state.params))
+    batch = batch_to_device(next(lm_batches(cfg, B, T, seed=0)), "cuda")
+    step = make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=2,
+                                            total_steps=8))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    m = {k: float(v) for k, v in m.items()}
+    step_s = time.perf_counter() - t0
+    res = dict(arch=cfg.arch_id, params=n, batch=B, seq=T, step_s=step_s,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **m)
+    log(f"  {cfg.arch_id} bf16, {n / 1e9:.3f} B params, B {B} x T {T}: one "
+        f"step {step_s:.2f} s, loss {m['loss']:.4f}, grad norm "
+        f"{m['grad_norm']:.3f}, peak {res['peak_mem_gb']:.2f} GB")
+    if not (math.isfinite(m["loss"]) and m["loss"] > 0
+            and math.isfinite(m["grad_norm"])):
+        raise AssertionError(f"{cfg.arch_id} training step: {res}")
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_training():
+    """Phase 17: the training path on the card."""
+    from repro_torch.configs.gemma2_2b import CONFIG as GEMMA
+    from repro_torch.configs.zamba2_1p2b import CONFIG as ZAMBA
+    log("phase 17: training: reduced gemma2-2b card vs CPU (f32) and a "
+        "checkpoint round trip; gemma2-2b at full width and depth in bf16, "
+        f"{TRAIN_STEPS} steps of train at B {TRAIN_B} x T {TRAIN_T}; one "
+        "step of zamba2-1.2b at full width (B 1 x T 512)")
+    reset_launches()
+    out = dict(card_vs_cpu=training_across_devices())
+    out["gemma2_2b"] = train_full_width(GEMMA)
+    out["zamba2_1p2b"] = train_one_step(ZAMBA)
+    out["launches"] = {k: fn.launches for k, fn in launch_counters().items()}
+    log(f"  kernel launches while training: {out['launches']} (attention "
+        f"is plain torch in both packages)")
+    if any(out["launches"].values()):
+        raise AssertionError(f"training launched {out['launches']}")
+    return out
+
+
+def sampled_compiled_check(engine, max_ctx, steps=8, seed=7,
+                           temperature=None):
+    """Phase 18: the captured decode step at ``temperature`` (default the
+    engine's) on the state the sampled serve left: a ``DecodeGraph`` whose
+    sampler's generator is registered with the graph; ``steps`` eager
+    steps, then (state, tokens and generator rewound to one saved state)
+    one capture and ``steps`` replays: the same logits bits and ids
+    (``replay_vs_eager``). Also counts the distinct ids the replays drew
+    (fresh numbers each replay make them differ at a high temperature)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.zones import plan_zones
+    from repro_torch.serving.engine import Sampler
+    from repro_torch.serving.graphs import DecodeGraph, leaves
+    cfg, state = engine.cfg, engine.last_state
+    B = engine.last_graph.tokens.shape[0]
+    plan = plan_zones(max_ctx, cfg.retro, engine.gen_headroom)
+    temperature = engine.temperature if temperature is None else temperature
+    sampler = Sampler(temperature, seed, engine.device)
+    with torch.inference_mode():
+        saved = [t.clone() for t in leaves(state)]
+    rng0 = sampler.generator.get_state()
+    first = torch.tensor([1, 2], dtype=torch.int32,
+                         device=engine.device)[:B]
+
+    def restore(graph):
+        for t, sv in zip(leaves(state), saved):
+            t.copy_(sv)
+        graph.tokens.copy_(first)
+        sampler.generator.set_state(rng0)
+
+    graph = DecodeGraph(engine._decode_fn(plan), sampler, state,
+                        first.clone(), key=(B, max_ctx, "fused", "sampled"))
+    ids = []
+    real = graph.step
+
+    def step(act):                      # the replays' ids, as drawn
+        out = real(act)
+        if graph.graph is not None:
+            ids.append(out[1].clone())
+        return out
+
+    graph.step = step
+    res = replay_vs_eager(graph, restore, np.ones(B, bool), steps,
+                          KERNEL_TAGS["paged_wave_attention"],
+                          2 * cfg.n_layers, f"sampled fused at T {temperature}")
+    res["temperature"] = temperature
+    res["distinct_replay_ids"] = len({i for t in ids for i in t.tolist()})
+    log(f"  {res['distinct_replay_ids']} distinct ids over the replays")
+    del graph, saved
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_sampling(cfg, greedy_path):
+    """Phase 18: full-width gemma2-2b served through ``fused`` at a
+    temperature (blocking admission), each serve checked as the main path
+    is (one capture, a replay for every later step, launches, every id in
+    the vocabulary); the captured sampled step replays equal to eager with
+    the generator rewound; one seed twice gives one token stream; at
+    ``temperature=0`` the engine serves the greedy engine's tokens (the
+    engine of ``greedy_path``'s phase, built without a temperature)."""
+    import torch
+    from repro_torch.models import model as M
+    log("phase 18: serve gemma2-2b at full width through attn_impl='fused' "
+        "at temperature 0.7 (blocking admission; prompts 8192 / 6000 "
+        "generating 32 / 24)")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    lens, news = (8192, 6000), (32, 24)
+    kw = dict(admission="blocking", want_flush=False, params=params)
+    out = {}
+    out["serve"], taken, engine = serve_main_path(cfg, lens, news,
+                                                  temperature=0.7,
+                                                  serve_seed=1, **kw)
+    del taken
+    out["compiled"] = sampled_compiled_check(engine, max(lens))
+    # near-uniform draws: every replay must draw fresh numbers
+    out["compiled_hot"] = sampled_compiled_check(engine, max(lens),
+                                                 temperature=1e4)
+    if out["compiled_hot"]["distinct_replay_ids"] < 2:
+        raise AssertionError(f"replays drew the same ids: "
+                             f"{out['compiled_hot']}")
+    del engine
+    torch.cuda.empty_cache()
+
+    def tokens_of(**k):                 # a serve's results, its state freed
+        res, taken, engine = serve_main_path(cfg, lens, news, **k, **kw)
+        del taken, engine
+        torch.cuda.empty_cache()
+        return res
+
+    again = tokens_of(temperature=0.7, serve_seed=1)
+    zero = tokens_of(temperature=0.0, serve_seed=5)
+    greedy = tokens_of()
+    out["same_seed_same_tokens"] = again["tokens"] == out["serve"]["tokens"]
+    out["zero_is_greedy"] = zero["tokens"] == greedy["tokens"]
+    out["distinct_sampled_ids"] = len({t for r in out["serve"]["tokens"]
+                                       for t in r})
+    out["greedy_serve"] = greedy
+    log(f"  sampled tokens (seed 1) {out['serve']['tokens'][0][:12]}...; "
+        f"{out['distinct_sampled_ids']} distinct ids; the same seed again "
+        f"gives the same tokens {out['same_seed_same_tokens']}; "
+        f"temperature=0 gives the greedy engine's tokens "
+        f"{out['zero_is_greedy']} ({greedy_path})")
+    if not (out["same_seed_same_tokens"] and out["zero_is_greedy"]):
+        raise AssertionError(f"sampling: {out}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--json", type=Path, default=None,
@@ -2783,6 +3213,14 @@ def main(argv=None):
             f"{r['peak_mem_gib']:.2f} GiB")
 
     fam = run_families(results)
+    t0 = time.perf_counter()
+    train17 = run_training()
+    train17["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 17: {train17['phase_s']:.1f} s")
+    t0 = time.perf_counter()
+    sample18 = run_sampling(CONFIG, "the engine as phase 3 builds it")
+    sample18["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 18: {sample18['phase_s']:.1f} s")
 
     # the kernel line: launches on the path that runs the kernel (the serve
     # run of its impl; for the two kernels no serving path calls, one call
@@ -2811,7 +3249,9 @@ def main(argv=None):
         zamba2_full=fam["serve_zamba2_full"]["launches"],
         rwkv6=fam["serve_rwkv6"]["launches"],
         whisper_fused=fam["serve_whisper"]["launches"],
-        whisper_full=fam["serve_whisper_full"]["launches"]),
+        whisper_full=fam["serve_whisper_full"]["launches"],
+        sampled_fused=sample18["serve"]["launches"],
+        training=train17["launches"]["paged_wave_attention"]),
         wave_attention_merge=dict(
             pallas=serve5["launches"], llava_pallas=serve12p["launches"],
             zamba2_pallas=fam["serve_zamba2_pallas"]["launches"]))
@@ -2864,7 +3304,8 @@ def main(argv=None):
             decode_breakdown_llava=breakdown12,
             llava_blocking_vs_chunked=blk_vs_chk12, serve_kimi=serve13,
             kimi_launch=kimi_launch, moe_ffn_kimi=moe13,
-            reduced_kimi_card_vs_cpu=red13, kernels=kernels, **fam),
+            reduced_kimi_card_vs_cpu=red13, kernels=kernels,
+            training=train17, sampling=sample18, **fam),
             indent=1))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

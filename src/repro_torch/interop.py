@@ -1,8 +1,11 @@
-"""Carry parameters and state across from the JAX package, as numpy.
+"""Carry parameters, training and serve state to and from the JAX
+package's layout, as numpy.
 
 The caller converts the JAX pytrees to numpy (``np.asarray`` per leaf); this
 module needs no JAX. Stacked ``(L, ...)`` layer leaves are split per layer,
-matching the port's per-layer lists.
+matching the port's per-layer lists, and stacked again on the way back
+(``params_to_numpy``, ``train_state_to_numpy``: the layout of the
+reference's checkpoints).
 """
 from __future__ import annotations
 
@@ -19,20 +22,24 @@ from repro_torch.models.hybrid import HybridServeState
 from repro_torch.models.mamba2 import Mamba2LayerState
 from repro_torch.models.rwkv6 import RwkvLayerState
 from repro_torch.models.transformer import PrefillChunkState, ServeState
+from repro_torch.training.optimizer import AdamWState
+from repro_torch.training.train_loop import TrainState, trainable
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
     """numpy (or array-like) -> tensor copy; ``bfloat16`` arrays (the
-    ml_dtypes type JAX hands numpy) are carried bit for bit."""
+    ml_dtypes type JAX hands numpy, or its raw ``V2`` values as a file
+    stores them) are carried bit for bit."""
     a = np.array(a, copy=True)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
 
 
-def _layer(tree, i):
+def layer_of(tree, i):
+    """Entry ``i`` of every stacked (L, ...) leaf of a nested mapping."""
     if isinstance(tree, Mapping):
-        return {k: _layer(v, i) for k, v in tree.items()}
+        return {k: layer_of(v, i) for k, v in tree.items()}
     return tree[i]
 
 
@@ -56,7 +63,7 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                  enc_layers=cfg.encoder_layers)
     for k, n in depth.items():
         if k in tree:
-            params[k] = [_to_torch(_layer(tree[k], i), device)
+            params[k] = [_to_torch(layer_of(tree[k], i), device)
                          for i in range(n)]
     if "shared" in tree:
         params["shared"] = _to_torch(tree["shared"], device)
@@ -139,12 +146,7 @@ def prefill_chunk_state_from_numpy(cache: Mapping[str, np.ndarray],
 def wave_state_to_numpy(state: WaveState) -> Dict[str, np.ndarray]:
     """One WaveState -> {field: numpy copy} (f32 for bf16 leaves); a copy,
     since the port updates states in place."""
-    out = {}
-    for f in WaveState._fields:
-        t = getattr(state, f)
-        t = t.float() if t.dtype == torch.bfloat16 else t
-        out[f] = t.detach().cpu().numpy().copy()
-    return out
+    return {f: tensor_to_numpy(getattr(state, f)) for f in WaveState._fields}
 
 
 def serve_state_to_numpy(state) -> Any:
@@ -160,7 +162,65 @@ def serve_state_to_numpy(state) -> Any:
     if hasattr(state, "_fields"):
         return {f: serve_state_to_numpy(getattr(state, f))
                 for f in state._fields}
-    t = state.detach()
-    t = t.float() if t.dtype == torch.bfloat16 else t
-    return t.cpu().numpy().copy()
+    return tensor_to_numpy(state)
 
+
+
+def tensor_to_numpy(t, bf16_bits: bool = False) -> np.ndarray:
+    """A tensor (or a Python float) -> a numpy copy. bf16 becomes f32, or
+    with ``bf16_bits`` its raw 2-byte values (numpy's ``V2``, as numpy
+    stores the reference's bf16 arrays)."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t, np.float32)
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        if bf16_bits:
+            return t.view(torch.int16).numpy().view(np.dtype("V2")).copy()
+        t = t.float()
+    return t.numpy().copy()
+
+
+def _stack(items):
+    if isinstance(items[0], dict):
+        return {k: _stack([it[k] for it in items]) for k in items[0]}
+    return np.stack(items)
+
+
+def params_to_numpy(params: Mapping[str, Any],
+                    bf16_bits: bool = False) -> Dict[str, Any]:
+    """The inverse of ``params_from_numpy``: the port's parameters (or a
+    tree of their structure, e.g. AdamW moments) -> the reference's
+    ``init_params`` pytree as numpy copies: per-layer lists stacked on a
+    leading (L, ...) axis, ``window`` (a list of floats or a tensor) as an
+    (L,) f32 array, bf16 leaves as ``tensor_to_numpy`` gives them."""
+    def conv(v):
+        if isinstance(v, Mapping):
+            return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, list):
+            return _stack([conv(x) for x in v])
+        return tensor_to_numpy(v, bf16_bits)
+    return {k: conv(v) for k, v in params.items()}
+
+
+def train_state_to_numpy(state, bf16_bits: bool = False):
+    """A ``TrainState`` -> the reference's ``TrainState`` layout as numpy:
+    ``TrainState(params, AdamWState(step, mu, nu))`` with the trees of
+    ``params_to_numpy``."""
+    tree = lambda p: params_to_numpy(p, bf16_bits)
+    opt = state.opt
+    return TrainState(params=tree(state.params), opt=AdamWState(
+        step=tensor_to_numpy(opt.step), mu=tree(opt.mu), nu=tree(opt.nu)))
+
+
+def train_state_from_numpy(tree, cfg: ModelConfig, device):
+    """The reference's ``TrainState`` (numpy leaves: ``params``, then
+    ``opt`` with ``step``, ``mu``, ``nu``) -> the port's, its parameters
+    set up for training (``train_loop.trainable``)."""
+    params, opt = tree
+    moments = lambda t: trainable(params_from_numpy(t, cfg, device),
+                                  grad=False)
+    return TrainState(
+        params=trainable(params_from_numpy(params, cfg, device)),
+        opt=AdamWState(step=tensor_from_numpy(
+            np.asarray(opt[0], np.int32), device),
+            mu=moments(opt[1]), nu=moments(opt[2])))

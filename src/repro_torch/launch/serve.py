@@ -5,7 +5,8 @@ chunked or blocking admission. Port of ``repro/launch/serve.py``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_2b \
         --device cuda --requests 4 --batch 2 --prompt-lens 8192,6000 \
         --new-tokens 32 --stagger 8 [--runtime full] \
-        [--admission blocking --prefill-bucket 64] [--offload --cache-frac 0.2]
+        [--admission blocking --prefill-bucket 64] [--offload --cache-frac 0.2] \
+        [--temperature 0.7 --seed 3]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_tiny \
         --device cpu --reduced --prompt-lens 60,40 --new-tokens 4
 """
@@ -84,6 +85,9 @@ def main(argv=None):
     ap.add_argument("--max-decode-steps", type=int, default=None,
                     help="per-request watchdog: finish a request with "
                          "status='timeout' after this many decode steps")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sample at this temperature (Gumbel-max from a "
+                         "generator seeded by --seed); 0: greedy")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -102,7 +106,8 @@ def main(argv=None):
                          fault_profile=args.fault_profile,
                          fetch_deadline_s=args.fetch_deadline,
                          fetch_retries=args.fetch_retries,
-                         max_decode_steps=args.max_decode_steps, device=dev)
+                         max_decode_steps=args.max_decode_steps,
+                         temperature=args.temperature, device=dev)
     rng = np.random.default_rng(args.seed)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab, lens[i % len(lens)])
                     .astype(np.int32),
@@ -112,7 +117,7 @@ def main(argv=None):
         for r in reqs:
             r.extra = {"frames": rng.standard_normal(
                 (1, cfg.encoder_frames, cfg.d_model)).astype(np.float32)}
-    m = engine.serve(reqs, batch_size=args.batch)
+    m = engine.serve(reqs, batch_size=args.batch, seed=args.seed)
     print(f"served {len(reqs)} requests on {args.batch} slots "
           f"({engine.runtime}{'+offload' if engine.offload else ''}, "
           f"{engine.admission} admission, {engine.attn_impl} attention, "

@@ -1,6 +1,8 @@
 """Whisper-style encoder-decoder backbone (arXiv:2212.04356).
 
-Port of ``repro/models/encdec.py`` (the serving path). The mel-spectrogram
+Port of ``repro/models/encdec.py``: the training forward (teacher-forced
+decoder, each decoder layer checkpointed, as in the reference) and the
+serving path. The mel-spectrogram
 and conv feature extractor are a stub, as in the reference: a request
 brings precomputed frame embeddings (B, frames, D). The encoder is
 bidirectional over the frames (sinusoidal positions added, RoPE in the
@@ -15,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as wa
@@ -98,13 +101,45 @@ def _cross_attend(lp, cfg: ModelConfig, x, k_x, v_x):
     return x + ox.reshape(B, n, -1) @ lp["xattn"]["wo"]
 
 
+def _dec_layer_seq(lp, cfg: ModelConfig, x, k_x, v_x, positions):
+    """A decoder layer over a whole sequence x (B, T, D): causal
+    self-attention, cross-attention to (k_x, v_x), the MLP. Returns (x,
+    (k, v)), the self-attention's K/V post-RoPE."""
+    a = cfg.attn
+    B, n, _ = x.shape
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = L.attention_qkv(lp["attn"], h, a.n_heads, a.n_kv_heads,
+                              a.head_dim, positions, a.rope_theta)
+    o = L.flash_attention_jnp(q, k, v, causal=True)
+    x = x + o.reshape(B, n, -1) @ lp["attn"]["wo"]
+    x = _cross_attend(lp, cfg, x, k_x, v_x)
+    h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + L.mlp_apply(lp["mlp"], h, cfg.act), (k, v)
+
+
+def _dec_layer_train(lp, cfg: ModelConfig, x, k_x, v_x, positions):
+    return _dec_layer_seq(lp, cfg, x, k_x, v_x, positions)[0]
+
+
+def forward(params, cfg: ModelConfig, tokens, frames):
+    """Training forward, teacher-forced: tokens (B, T) with cross-attention
+    to the encoded ``frames`` (B, F, D) -> (hidden (B, T, D), aux 0.0);
+    each decoder layer checkpointed."""
+    ck, cv = _cross_kv(params, cfg, encode(params, cfg, frames))
+    x = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp, k_x, v_x in zip(params["dec_layers"], ck, cv):
+        x = checkpoint(_dec_layer_train, lp, cfg, x, k_x, v_x, positions,
+                       use_reentrant=False)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), 0.0
+
+
 def prefill(params, cfg: ModelConfig, tokens, frames, *,
             runtime: str = "retro", plan: Optional[ZonePlan] = None,
             gen_headroom: int = 4096, cache_len: Optional[int] = None):
     """Encode ``frames`` and prefill the decoder prompt ``tokens`` (B, T);
     returns (last-position logits, the serve state)."""
-    a = cfg.attn
-    B, n = tokens.shape
+    n = tokens.shape[1]
     if plan is None:
         plan = plan_zones(n, cfg.retro, gen_headroom)
     total = cache_len if cache_len is not None else n + gen_headroom
@@ -113,16 +148,9 @@ def prefill(params, cfg: ModelConfig, tokens, frames, *,
     positions = torch.arange(n, device=tokens.device)
     kv = []
     for lp, k_x, v_x in zip(params["dec_layers"], ck, cv):
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = L.attention_qkv(lp["attn"], h, a.n_heads, a.n_kv_heads,
-                                  a.head_dim, positions, a.rope_theta)
-        o = L.flash_attention_jnp(q, k, v, causal=True)
-        x = x + o.reshape(B, n, -1) @ lp["attn"]["wo"]
-        x = _cross_attend(lp, cfg, x, k_x, v_x)
-        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], h, cfg.act)
+        x, (k, v) = _dec_layer_seq(lp, cfg, x, k_x, v_x, positions)
         kv.append(build_kv(cfg, k, v, runtime=runtime, plan=plan,
-                             total=total))
+                           total=total))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, cfg, x[:, -1]), EncDecServeState(
         self_kv=kv, cross_k=ck, cross_v=cv)

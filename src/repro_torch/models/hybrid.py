@@ -4,19 +4,22 @@ blocks with ONE shared attention block (one weight set) applied after every
 shared-attention sites only: each site has its own KV / index state (same
 weights, different depth, so different K/V).
 
-Port of ``repro/models/hybrid.py`` (the serving path). The reference scans
-groups of (``shared_attn_every`` mamba blocks + the shared block) and a
-mamba-only tail; the port runs the same order as a Python loop over the
-layers. Each site's state is a ``WaveState`` (retro runtime: built by
-``prefill_build``, appended by ``append_token`` and attended through
-``wave_attention_decode`` under any impl) or a ``DenseCache`` (full
-runtime). The decode step updates every state tensor in place.
+Port of ``repro/models/hybrid.py``: the training forward and the serving
+path. The reference scans groups of (``shared_attn_every`` mamba blocks +
+the shared block) and a mamba-only tail; the port runs the same order as
+a Python loop over the layers, and its training forward checkpoints each
+group and each tail block, as the reference does. Each site's state is a
+``WaveState`` (retro runtime: built by ``prefill_build``, appended by
+``append_token`` and attended through ``wave_attention_decode`` under any
+impl) or a ``DenseCache`` (full runtime). The decode step updates every
+state tensor in place.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as wa
@@ -62,6 +65,32 @@ def _shared_block_seq(sp, cfg: ModelConfig, x, positions):
     x = x + o.reshape(B, T, -1) @ sp["attn"]["wo"]
     h = L.rms_norm(x, sp["ln2"], cfg.norm_eps)
     return x + L.mlp_apply(sp["mlp"], h, cfg.act), (k, v)
+
+
+def _group_seq(sp, cfg: ModelConfig, lps, x, positions):
+    """A group of the training forward: the mamba blocks ``lps``, then the
+    shared block."""
+    for lp in lps:
+        x = mamba2.layer_apply_seq(lp, cfg, x)
+    return _shared_block_seq(sp, cfg, x, positions)[0]
+
+
+def forward(params, cfg: ModelConfig, tokens):
+    """Training forward: tokens (B, T) -> (hidden (B, T, D), aux 0.0).
+    Groups of ``shared_attn_every`` mamba blocks + the shared block, then
+    the mamba-only tail, each group and tail block checkpointed."""
+    x = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    G = cfg.shared_attn_every
+    n = cfg.n_layers // G * G
+    layers = params["layers"]
+    for g in range(0, n, G):
+        x = checkpoint(_group_seq, params["shared"], cfg, layers[g:g + G], x,
+                       positions, use_reentrant=False)
+    for lp in layers[n:]:
+        x = checkpoint(mamba2.layer_apply_seq, lp, cfg, x,
+                       use_reentrant=False)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), 0.0
 
 
 def _shared_block_step(sp, cfg: ModelConfig, kst, x, *, runtime, plan,

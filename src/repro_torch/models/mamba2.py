@@ -6,9 +6,11 @@ Port of ``repro/models/mamba2.py``. Per head h, with scalar decay:
 A short causal depthwise conv precedes (x, B, C). The sequence path
 computes the projections, the conv, dt and the decay for the whole prompt
 at once; only the ``S`` update and the ``y`` read run as a time loop
-(``scan_utils.remat_chunked_scan``). The decode step is one O(1) update
-that writes the state's tensors in place (``ssm`` and the ``conv``
-history), so a captured CUDA graph replays it.
+(``scan_utils.remat_chunked_scan``), in place on ``S`` when serving and
+out of place, with the same roundings, under autograd (the training
+forward). The decode step is one O(1) update that writes the state's
+tensors in place (``ssm`` and the ``conv`` history), so a captured CUDA
+graph replays it.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.scan_utils import remat_chunked_scan
+from repro_torch.models.scan_utils import records, remat_chunked_scan
 from repro_torch.models.transformer import torch_dtype
 
 
@@ -97,10 +99,14 @@ def layer_apply_seq(lp, cfg: ModelConfig, xin, return_state: bool = False):
     xh = x.reshape(B, T, H, hd).float()
     dtv, decay = _dt_decay(lp, dtv)                         # (B, T, H)
     xdt = xh * dtv[..., None]
+    inplace = not records(xdt, decay, Bm, Cm)
 
     def step(S, inp):
         xdt_t, b_t, c_t, dec_t = inp                # shaped to broadcast
-        S.mul_(dec_t).addcmul_(xdt_t, b_t)
+        if inplace:
+            S.mul_(dec_t).addcmul_(xdt_t, b_t)
+        else:
+            S = torch.addcmul(S * dec_t, xdt_t, b_t)
         return S, torch.matmul(S, c_t)
 
     # per-token views shaped for the step, time axis first: the loop body

@@ -1,11 +1,13 @@
-"""Model API used by the serve engine. Port of ``repro/models/model.py``
-(the serving API) over every family — the attention families (dense, moe,
-vlm: ``transformer``), ssm (``rwkv6``), hybrid (``hybrid``: mamba2 blocks
-and a shared attention block) and audio (``encdec``) — both serve runtimes
-("retro": the wave index; "full": a dense KV cache), blocking and chunked
-admission:
+"""Model API of the trainer and the serve engine. Port of
+``repro/models/model.py`` (the training and serving API) over every
+family — the attention families (dense, moe, vlm: ``transformer``), ssm
+(``rwkv6``), hybrid (``hybrid``: mamba2 blocks and a shared attention
+block) and audio (``encdec``) — both serve runtimes ("retro": the wave
+index; "full": a dense KV cache), blocking and chunked admission:
 
     params      = init_params(cfg, generator, device)
+    logits, aux = apply_train(params, cfg, batch)
+    loss        = lm_loss(params, cfg, batch)
     logits, st  = apply_prefill(params, cfg, {"tokens": ...,
                                               "patch_embeds": ...},
                                 runtime=..., lengths=..., cache_len=...)
@@ -19,7 +21,8 @@ admission:
     state       = make_serve_state(cfg, B, seq_len, runtime=..., device=...)
     supports_offload(cfg, runtime), offload_decode_fns(cfg)  # host offload
 
-``batch`` keys: tokens (B, T) int; patch_embeds (B, P, D) for vlm (in
+``batch`` keys: tokens (B, T) int; targets (B, T) int and an optional
+loss_mask (B, T) (training); patch_embeds (B, P, D) for vlm (in
 every chunk's batch of a chunked admission: the chunk takes the slice at
 its positions); frames (B, F, D) for audio. As in the reference, the
 chunked admission and the offload API exist for the attention families
@@ -66,6 +69,44 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             "audio": encdec.init_encdec}.get(cfg.family,
                                              transformer.init_transformer)
     return init(cfg, generator, dev)
+
+
+def _hidden_forward(params, cfg: ModelConfig, batch):
+    if cfg.family in ATTN_FAMILIES:
+        return transformer.forward(params, cfg, batch["tokens"],
+                                   batch.get("patch_embeds"))
+    if cfg.family == "ssm":
+        return rwkv6.forward(params, cfg, batch["tokens"])
+    if cfg.family == "hybrid":
+        return hybrid.forward(params, cfg, batch["tokens"])
+    return encdec.forward(params, cfg, batch["tokens"], batch["frames"])
+
+
+def apply_train(params, cfg: ModelConfig, batch):
+    """Training forward: -> (logits (B, T, V) f32, aux loss). The attention
+    families unembed through their head (tied or ``lm_head``); the others
+    through the embedding, as in the reference."""
+    _family(cfg)
+    x, aux = _hidden_forward(params, cfg, batch)
+    if cfg.family in ATTN_FAMILIES:
+        return transformer.unembed(params, cfg, x), aux
+    return (x @ params["embed"].T).float(), aux
+
+
+def lm_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Mean next-token NLL over the tokens (or over the ``loss_mask``
+    weights, their sum floored at 1) plus the aux loss; f32 scalar."""
+    logits, aux = apply_train(params, cfg, batch)
+    targets = batch["targets"].long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        nll = nll * mask
+        denom = torch.clamp(mask.sum(), min=1.0)
+    else:
+        denom = nll.numel()
+    return nll.sum() / denom + aux
 
 
 def apply_prefill(params, cfg: ModelConfig, batch, *, runtime: str = "retro",

@@ -3,14 +3,17 @@ data-dependent decay. Time-mix keeps a per-head (hd x hd) matrix state with
 per-channel decay w_t computed from the input; channel-mix is a
 squared-ReLU FFN.
 
-Port of ``repro/models/rwkv6.py`` (the serving path: init, prefill, the
-decode step and the serve state). The wave index does not apply (no KV
-cache). The prefill computes everything that does not depend on the
-recurrent state for the whole prompt at once (token shift, the five
-projections, the decay, the gate, the group norm and the output
-projection); only the ``wkv`` recurrence and its read run as a time loop
-(``scan_utils.remat_chunked_scan``). The decode step updates the state's
-tensors in place, so a captured CUDA graph replays it.
+Port of ``repro/models/rwkv6.py``: init, the training forward, prefill,
+the decode step and the serve state. The wave index does not apply (no KV
+cache). The training forward and the prefill compute everything that does
+not depend on the recurrent state for the whole sequence at once (token
+shift, the five projections, the decay, the gate, the group norm and the
+output projection); only the ``wkv`` recurrence and its read run as a time
+loop (``scan_utils.remat_chunked_scan``). Serving updates the state in
+place (the decode step's tensors, so a captured CUDA graph replays it);
+under autograd the loop's body is out of place, with the same fused
+multiply-add, and the forward checkpoints each layer as the reference's
+``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
@@ -18,10 +21,11 @@ from typing import Any, Dict, List, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.scan_utils import remat_chunked_scan
+from repro_torch.models.scan_utils import records, remat_chunked_scan
 from repro_torch.models.transformer import embed_tokens, torch_dtype, unembed
 
 LORA_RANK = 32
@@ -108,16 +112,16 @@ def _mix_inputs(lp, H, hd, x, x_prev):
     return r, k, v, _decay(lp, xw).reshape(lead), g
 
 
-def _wkv_step(S, r, k, v, w, u):
-    """One token of the recurrence, in place on S (B, H, hd, hd):
-    out = r (S + u k^T v), then S <- w S + k^T v, each a fused
-    multiply-add (``addcmul``), as XLA contracts the reference's. Shaped to
-    broadcast: r, v (B, H, 1, hd), k, w (B, H, hd, 1) f32; u (H, hd, 1).
-    Returns out (B, H, 1, hd)."""
+def _wkv_step(S, r, k, v, w, u, inplace: bool = True):
+    """One token of the recurrence on S (B, H, hd, hd): out = r (S + u k^T
+    v), then S <- w S + k^T v, each a fused multiply-add (``addcmul``), as
+    XLA contracts the reference's; S is written in place, or (``inplace``
+    False: under autograd) a new tensor. Shaped to broadcast: r, v (B, H,
+    1, hd), k, w (B, H, hd, 1) f32; u (H, hd, 1). Returns (out (B, H, 1,
+    hd), S)."""
     a = k * v                                               # outer product
     out = torch.matmul(r, torch.addcmul(S, u, a))
-    torch.addcmul(a, S, w, out=S)
-    return out
+    return out, torch.addcmul(a, S, w, out=S if inplace else None)
 
 
 def _wkv_shapes(r, k, v, w, u):
@@ -141,7 +145,7 @@ def _time_mix_step(lp, H, hd, x, x_prev, S):
     the time-mix output (B, D)."""
     r, k, v, w, g = _mix_inputs(lp, H, hd, x, x_prev)
     u = lp["u"].float().reshape(H, hd)
-    out = _wkv_step(S, *_wkv_shapes(r, k, v, w, u))
+    out, _ = _wkv_step(S, *_wkv_shapes(r, k, v, w, u))
     return _time_mix_out(lp, out[..., 0, :], g, x.dtype)
 
 
@@ -155,6 +159,34 @@ def _channel_mix(lp, x, x_prev):
 def _shift(h):
     """(B, T, D) -> the previous token's rows, zero before the first."""
     return F.pad(h, (0, 0, 1, 0))[:, :-1]
+
+
+def layer_apply_seq(lp, cfg: ModelConfig, x, return_state: bool = False):
+    """One layer over a whole sequence: x (B, T, D) -> (B, T, D) [, the
+    final ``RwkvLayerState``]."""
+    B, T, _ = x.shape
+    H, hd = _heads(cfg)
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    r, k, v, w, g = _mix_inputs(lp, H, hd, h, _shift(h))
+    *rkvw, u = _wkv_shapes(r, k, v, w, lp["u"].float().reshape(H, hd))
+    inplace = not records(*rkvw, u)
+
+    def step(S, inp):
+        out, S = _wkv_step(S, *inp, u, inplace)
+        return S, out
+
+    # per-token views shaped for the step, time axis first: the loop body
+    # is four kernels and no view ops (it runs T times a layer)
+    S0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
+    S, outs = remat_chunked_scan(step, S0, tuple(
+        t.transpose(0, 1) for t in rkvw))
+    x = x + _time_mix_out(lp, outs[..., 0, :].transpose(0, 1), g, x.dtype)
+    h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    x = x + _channel_mix(lp, h2, _shift(h2))
+    if return_state:
+        return x, RwkvLayerState(wkv=S, x_tm=h[:, -1].contiguous(),
+                                 x_cm=h2[:, -1].contiguous())
+    return x
 
 
 def init_serve_state(cfg: ModelConfig, B: int,
@@ -173,30 +205,21 @@ def prefill(params, cfg: ModelConfig, tokens):
     """Prompt processing; returns (last-position logits (B, V) f32, the
     serve state). Every row consumes all T tokens (no ragged lengths)."""
     x = embed_tokens(params, cfg, tokens)
-    B, T, _ = x.shape
-    H, hd = _heads(cfg)
     state = []
     for lp in params["layers"]:
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        r, k, v, w, g = _mix_inputs(lp, H, hd, h, _shift(h))
-        *rkvw, u = _wkv_shapes(r, k, v, w, lp["u"].float().reshape(H, hd))
-
-        def step(S, inp):
-            return S, _wkv_step(S, *inp, u)
-
-        # per-token views shaped for the step, time axis first: the loop
-        # body is four kernels and no view ops (it runs T times a layer)
-        S0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
-        S, outs = remat_chunked_scan(step, S0, tuple(
-            t.transpose(0, 1) for t in rkvw))
-        x = x + _time_mix_out(lp, outs[..., 0, :].transpose(0, 1), g,
-                              x.dtype)
-        h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _channel_mix(lp, h2, _shift(h2))
-        state.append(RwkvLayerState(wkv=S, x_tm=h[:, -1].contiguous(),
-                                    x_cm=h2[:, -1].contiguous()))
+        x, st = layer_apply_seq(lp, cfg, x, return_state=True)
+        state.append(st)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, cfg, x[:, -1]), state
+
+
+def forward(params, cfg: ModelConfig, tokens):
+    """Training forward: tokens (B, T) -> (hidden (B, T, D), aux 0.0), each
+    layer checkpointed."""
+    x = embed_tokens(params, cfg, tokens)
+    for lp in params["layers"]:
+        x = checkpoint(layer_apply_seq, lp, cfg, x, use_reentrant=False)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), 0.0
 
 
 def decode_step(params, cfg: ModelConfig, state: List[RwkvLayerState],

@@ -1,9 +1,10 @@
-"""GQA transformer serving path: dense (gemma/minitron), MoE
+"""GQA transformer: dense (gemma/minitron), MoE
 (mixtral/kimi: ``models/moe.py`` in place of the MLP) and VLM (the llava
 backbone: patch embeddings replace the first positions' token embeddings).
 
-Port of ``repro/models/transformer.py``: init, the monolithic prefill of
-blocking admission (flash or block-sparse attention, then
+Port of ``repro/models/transformer.py``: init, the training forward
+(every layer checkpointed, the MoE aux loss summed), the monolithic prefill
+of blocking admission (flash or block-sparse attention, then
 ``prefill_build``), chunked prefill (exact chunk attention against an
 admission cache while the wave index is built incrementally) and its
 finalize, the decode step with any of the decode-attention impls
@@ -21,6 +22,7 @@ import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as wa
@@ -102,14 +104,48 @@ def unembed(params, cfg: ModelConfig, x):
 
 
 def _ffn(lp, x, cfg: ModelConfig):
-    """x: (..., D) -> (..., D): the MLP, or the MoE FFN over every token of
-    the call (its aux loss is for training and dropped here)."""
+    """x: (..., D) -> ((..., D), aux loss): the MLP (aux 0.0), or the MoE
+    FFN over every token of the call (its load-balance loss, f32; the serve
+    paths drop it)."""
     if cfg.moe is not None:
-        y, _ = moe_apply_grouped(lp["moe"], x.reshape(-1, x.shape[-1]),
-                                 cfg.moe, cfg.act,
-                                 groups=cfg.moe_dispatch_groups)
-        return y.view(x.shape)
-    return L.mlp_apply(lp["mlp"], x, cfg.act)
+        y, aux = moe_apply_grouped(lp["moe"], x.reshape(-1, x.shape[-1]),
+                                   cfg.moe, cfg.act,
+                                   groups=cfg.moe_dispatch_groups)
+        return y.view(x.shape), aux
+    return L.mlp_apply(lp["mlp"], x, cfg.act), 0.0
+
+
+# ---------------------------------------------------------------------------
+# training / scoring forward (full attention, chunked online softmax)
+# ---------------------------------------------------------------------------
+
+def _train_layer(lp, window, cfg: ModelConfig, x, positions):
+    """One layer of ``forward``: -> (x, the layer's aux loss)."""
+    a = cfg.attn
+    B, T, _ = x.shape
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = L.attention_qkv(lp["attn"], h, a.n_heads, a.n_kv_heads,
+                              a.head_dim, positions, a.rope_theta)
+    o = L.flash_attention_jnp(q, k, v, causal=True, window=window,
+                              softcap=a.softcap)
+    x = x + o.reshape(B, T, -1) @ lp["attn"]["wo"]
+    y, aux = _ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+    return x + y, aux
+
+
+def forward(params, cfg: ModelConfig, tokens, patch_embeds=None):
+    """tokens: (B, T) -> (hidden (B, T, D), aux loss), every layer
+    checkpointed (recomputed in the backward pass), as the reference's
+    ``jax.checkpoint`` does. ``params["window"]``: per-layer floats, or the
+    (L,) f32 tensor of a training state."""
+    x = embed_tokens(params, cfg, tokens, patch_embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = 0.0
+    for lp, window in zip(params["layers"], params["window"]):
+        x, aux_l = checkpoint(_train_layer, lp, window, cfg, x, positions,
+                              use_reentrant=False)
+        aux = aux + aux_l
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def build_kv(cfg: ModelConfig, k, v, *, runtime: str, plan: ZonePlan,
@@ -184,7 +220,7 @@ def prefill(params, cfg: ModelConfig, tokens, patch_embeds=None, *,
                                       softcap=a.softcap)
         x = x + o.reshape(B, T, -1) @ lp["attn"]["wo"]
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _ffn(lp, h, cfg)
+        x = x + _ffn(lp, h, cfg)[0]
         kv.append(build_kv(cfg, k, v, runtime=runtime, plan=plan,
                            total=total, lengths=lens))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -301,7 +337,7 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, state: PrefillChunkState,
                              softcap=a.softcap)
         x = x + o.reshape(B, C, -1) @ lp["attn"]["wo"]
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        y = _ffn(lp, h, cfg)
+        y = _ffn(lp, h, cfg)[0]
         if runtime == "retro":
             wave_l = prefill_append_chunk(wave_l, k, v, retro, clens)
         waves.append(wave_l)
@@ -369,7 +405,7 @@ def decode_step(params, cfg: ModelConfig, state: ServeState, token, *,
                                          softcap=a.softcap)
         x = x + o.reshape(B, -1) @ lp["attn"]["wo"]
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _ffn(lp, h, cfg)
+        x = x + _ffn(lp, h, cfg)[0]
         kv.append(lstate)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, cfg, x), ServeState(kv=kv)
@@ -455,7 +491,7 @@ def offload_decode_attend(lp, window, cfg: ModelConfig, live: Dict, x, ctx,
         softcap=a.softcap, impl=impl, valid=valid, cover=cover).out
     x = x + out.reshape(B, -1) @ lp["attn"]["wo"]
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _ffn(lp, h, cfg)
+    return x + _ffn(lp, h, cfg)[0]
 
 
 def offload_flush(cfg: ModelConfig, lives: List[Dict], rows):

@@ -7,8 +7,9 @@ reference.
 
 Port of ``repro/serving/engine.py``: both serve runtimes ("retro", the wave
 index; "full", a dense KV cache), both admission modes, every
-decode-attention impl, the direct store and the host-offload plane. Greedy
-sampling only (the reference's ``temperature > 0`` is not ported yet).
+decode-attention impl, the direct store and the host-offload plane, and
+its sampling: greedy, or at ``temperature`` > 0 Gumbel-max from a
+generator seeded by ``serve(seed)`` (``Sampler``).
 
 The decode loop runs a fixed number of slots. Under chunked admission (the
 default) a request's prompt is consumed one fixed-size chunk per scheduler
@@ -462,7 +463,7 @@ class _OffloadPlane:
     # ------------------------------------------------------------- decode
     def decode_step(self, state, tokens_dev, active):
         """One decode step over the slot batch, layer-pipelined (see the
-        class docstring), through the stage's pieces. The greedy ids are
+        class docstring), through the stage's pieces. The sampled ids are
         written into ``tokens_dev`` (and the stage's ``ids``). Returns
         (device logits, the state, updated in place); the logits are the
         stage's static buffer, which the next step overwrites."""
@@ -558,6 +559,35 @@ class _OffloadPlane:
         metrics.dropped_cluster_steps += self.dropped_cluster_steps
 
 
+class Sampler:
+    """On-device sampling of (B, V) f32 logits to (B,) int32 ids, no host
+    transfer: the argmax at ``temperature`` <= 0; otherwise Gumbel-max,
+    ``argmax(logits / T + g)`` with g = -log(-log(u)) and u uniform from
+    ``generator`` (on the logits' device, seeded with ``seed``), a draw
+    from ``softmax(logits / T)`` per row. The reference draws with
+    ``jax.random.categorical`` (the same Gumbel-max) under a key split per
+    admission round and decode step; the port draws from one generator
+    stream, each call advancing it, so a seed fixes the tokens of a serve
+    (not the reference's tokens: the two generators' bits differ). A
+    captured decode step registers ``generator`` with its graph, so every
+    replay draws fresh noise with no host sync."""
+
+    def __init__(self, temperature: float = 0.0, seed: int = 0,
+                 device="cpu"):
+        self.temperature = float(temperature)
+        self.generator = None if self.temperature <= 0 else \
+            torch.Generator(device=device).manual_seed(seed)
+
+    def __call__(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.generator is None:
+            return logits.argmax(dim=-1).to(torch.int32)
+        u = torch.rand(logits.shape, generator=self.generator,
+                       device=logits.device)
+        g = -torch.log(-torch.log(u.clamp_(min=torch.finfo(u.dtype).tiny)))
+        return (logits / self.temperature + g).argmax(dim=-1) \
+            .to(torch.int32)
+
+
 class ServeEngine:
     """``serve(requests, batch_size)`` — continuous scheduler over a slot
     batch. ``runtime``: "retro" (the wave index) or "full" (dense cache).
@@ -573,11 +603,13 @@ class ServeEngine:
     cache of ``cache_clusters`` slots (or ``cache_frac`` of the store) under
     ``cache_policy``; ``fault_profile`` (a ``FaultProfile`` or a spec such
     as "transient=0.2,seed=3"), ``fetch_deadline_s``, ``fetch_retries`` and
-    ``fetch_backoff_s`` shape its miss fetches. ``device`` defaults to
-    ``cuda`` and raises when there is no card."""
+    ``fetch_backoff_s`` shape its miss fetches. ``temperature`` > 0
+    samples every token (``Sampler``, seeded by ``serve(seed=...)``); 0,
+    the default, is greedy. ``device`` defaults to ``cuda`` and raises
+    when there is no card."""
 
     def __init__(self, cfg: ModelConfig, params, *, runtime: str = "retro",
-                 gen_headroom: int = 1024,
+                 gen_headroom: int = 1024, temperature: float = 0.0,
                  max_context: Optional[int] = None, prefill_bucket: int = 1,
                  admission: str = "chunked",
                  prefill_chunk: int = 256, attn_impl: Optional[str] = None,
@@ -597,6 +629,9 @@ class ServeEngine:
         self.params = params
         self.runtime = runtime
         self.gen_headroom = gen_headroom
+        self.temperature = temperature
+        # the decode steps' sampler; ``serve`` makes a fresh one, seeded
+        self._sample_dev = Sampler(temperature, 0, self.device)
         self.max_context = max_context
         self.prefill_bucket = max(1, prefill_bucket)
         self.admission = admission
@@ -639,12 +674,6 @@ class ServeEngine:
             else int(self.cache_frac * m_max)
         return max(1, min(c, m_max))
 
-    @staticmethod
-    def _sample_dev(logits) -> torch.Tensor:
-        """Greedy sampling on device: (B, V) logits -> (B,) int32 ids, no
-        host transfer."""
-        return logits.argmax(dim=-1).to(torch.int32)
-
     def _decode_fn(self, plan):
         """The direct-store decode step of one geometry, as ``DecodeGraph``
         takes it. The step holds no reference to the engine, which holds
@@ -659,13 +688,16 @@ class ServeEngine:
         return fn
 
     @torch.inference_mode()
-    def serve(self, requests: List[Request],
-              batch_size: int) -> ServeMetrics:
+    def serve(self, requests: List[Request], batch_size: int,
+              seed: int = 0) -> ServeMetrics:
         """Serve a FIFO queue through ``batch_size`` continuous slots. The
         decode state and its captured step (``last_graph``: a
         ``DecodeGraph``, or with offload the plane's ``OffloadStage``)
-        belong to this call: each call captures once, at its geometry."""
+        belong to this call: each call captures once, at its geometry.
+        ``seed`` seeds the sampler (``temperature`` > 0): one seed, one
+        token stream."""
         cfg, dev, rt = self.cfg, self.device, self.runtime
+        self._sample_dev = Sampler(self.temperature, seed, dev)
         if not requests:
             raise ValueError("no requests")
         max_ctx = self.max_context or max(self._bucket(len(r.prompt))
@@ -894,11 +926,12 @@ class ServeEngine:
         return metrics
 
     def run_wave(self, requests: List[Request],
-                 extra_batch: Optional[Dict] = None) -> ServeMetrics:
+                 extra_batch: Optional[Dict] = None,
+                 seed: int = 0) -> ServeMetrics:
         """Serve one batch of requests with one slot each; ``extra_batch``
         (e.g. vlm ``patch_embeds`` (B, P, D)) is split into the requests'
         ``extra`` rows."""
         if extra_batch:
             for i, r in enumerate(requests):
                 r.extra = {k: v[i:i + 1] for k, v in extra_batch.items()}
-        return self.serve(requests, batch_size=len(requests))
+        return self.serve(requests, batch_size=len(requests), seed=seed)

@@ -20,7 +20,7 @@ runtime)``, and drops it with the call's state:
   choice of device).
 
 A graph replays at fixed addresses. So the step reads its tokens and active
-mask from static buffers, writes its logits and greedy ids to static
+mask from static buffers, writes its logits and sampled ids to static
 outputs (the ids also into the token buffer, the next step's input), and
 updates the state's own tensors in place: ``step`` raises if a state tensor
 moved. A kernel wrapper's launch count is Python code: it counts the
@@ -66,7 +66,9 @@ class DecodeGraph:
 
     ``fn(state, tokens, active) -> (logits (B, V), state)`` is one decode
     step that updates ``state`` in place; ``sample(logits) -> (B,) int32``
-    the on-device sampler. ``tokens``: the (B,) int32 token buffer, which
+    the on-device sampler (a generator it draws from, ``engine.Sampler``'s
+    at a temperature, is registered with the graph: each replay draws
+    fresh numbers). ``tokens``: the (B,) int32 token buffer, which
     the caller writes in place (admissions) and the step overwrites with
     its ids. ``captures`` counts captures, ``replays`` replays."""
 
@@ -127,17 +129,29 @@ class DecodeGraph:
             t.record_stream(main)
         torch.cuda.synchronize(dev)
         self.graph, (self.logits, self.ids) = capture(
-            torch.cuda.Stream(dev), self._run)
+            torch.cuda.Stream(dev), self._run, gens=generators(self.sample))
         self.captures += 1
         return logits, ids
 
 
-def capture(stream, run: Callable, pool=None):
+def generators(sample) -> Tuple[torch.Generator, ...]:
+    """The random generator a sampler draws from (``engine.Sampler`` at a
+    temperature), to register with the graph that captures it."""
+    gen = getattr(sample, "generator", None)
+    return () if gen is None else (gen,)
+
+
+def capture(stream, run: Callable, pool=None, gens=()):
     """Capture ``run()`` on ``stream`` into a new CUDA graph (memory from
     ``pool`` when given): as ``torch.cuda.graph`` does, but a failed capture
     still ends the capture and restores the caller's stream before it
-    raises. Returns ``(graph, run's result)``."""
+    raises. ``gens``: the generators ``run`` draws from, registered with
+    the graph, so that each replay draws the next numbers of their streams
+    (their offsets advance by the graph's draws a replay). Returns
+    ``(graph, run's result)``."""
     graph = torch.cuda.CUDAGraph()
+    for gen in gens:
+        graph.register_generator_state(gen)
     with torch.cuda.stream(stream):
         graph.capture_begin(pool=pool)
         try:
@@ -191,8 +205,8 @@ class OffloadStage:
       host;
     * piece l + 1 (l < L): layer l's cache update (``offload_cache_update``),
       its attend half, then layer l + 1's rank half and the copy of its ids
-      to the host (for the last layer: unembed, greedy sample, ids into the
-      token buffer).
+      to the host (for the last layer: unembed, sample, ids into the token
+      buffer).
 
     Between piece l and piece l + 1 the caller (``_OffloadPlane.decode_step``)
     waits for layer l's ids, translates them, loads the translated slot ids
@@ -416,8 +430,10 @@ class OffloadStage:
         torch.cuda.synchronize(dev)
         stream, pool = torch.cuda.Stream(dev), torch.cuda.graph_pool_handle()
         graphs = []
-        for k in range(self.L + 1):
-            graph, _ = capture(stream, lambda: self._piece(k), pool)
+        for k in range(self.L + 1):        # the last piece samples
+            graph, _ = capture(stream, lambda: self._piece(k), pool,
+                               generators(self.sample) if k == self.L
+                               else ())
             graphs.append(graph)
         self.graphs = graphs
         self._captured = self.addresses()
