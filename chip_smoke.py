@@ -116,7 +116,24 @@
    0.7 (blocking admission, 8192 / 6000 tokens generating 32 / 24): the
    main path's checks, the captured sampled step replayed equal to eager
    with the generator rewound, one seed twice the same tokens, and
-   ``temperature=0`` the greedy engine's tokens.
+   ``temperature=0`` the greedy engine's tokens;
+19. drives the step functions of ``serving/steps.py`` on full-width
+   gemma2-2b through the paged kernel: ``make_step``'s prefill step at
+   B 1 x T 8192, 16 decode steps through ``make_serve_step`` and, from a
+   copy of that state on the same tokens, through ``make_serve_step_split``
+   (logits within 1e-4, the cold tensors bit for bit unchanged, 26 x 16
+   paged launches each, both paths' synced ms per step), one train step at
+   B 1 x T 1024, and the dry-run of gemma2-2b x decode_32k on one H100
+   traced on the host's CPU;
+20. runs sharded retrieval on one global layer of gemma2-9b (Hkv 8, G 2,
+   hd 256, softcap 50, bf16, B 1) over two gloo ranks spawned on cuda:0,
+   each holding its ``shard_state`` half of the clusters: at 16384 tokens
+   with full coverage against the serial path within 1e-4; at 524288
+   tokens (clustered keys, the default plan) its error against full
+   attention within 2x the serial path's plus 1e-3; the fused serial
+   path there against itself with the paged kernel's plain twin (the
+   kernel tolerance) and against the "jnp" path (bf16 bound); then
+   perfcmp's three modes timed on the card.
 
 Every serve run above decodes through ``ServeEngine``'s compiled stages:
 the first step of the run eagerly, the rest as replays of one captured
@@ -2841,6 +2858,339 @@ def run_sampling(cfg, greedy_path):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the step functions (phase 19) and sharded retrieval (phase 20)
+# ---------------------------------------------------------------------------
+
+STEP_T, STEP_STEPS, STEP_TRAIN_T = 8192, 16, 1024
+SPLIT_TOL = 1e-4            # tests/test_system.py:519-533 (atol and rtol)
+SHARD_FULL_N, SHARD_LONG_N, SHARD_RANKS = 16384, 524288, 2
+
+
+def _synced_ms(fn):
+    """``fn()`` between two CUDA events, synced: -> (its result, ms)."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def step_functions(cfg, T=STEP_T, steps=STEP_STEPS, train_T=STEP_TRAIN_T,
+                  seed=0, device="cuda"):
+    """Phase 19: the step functions of ``serving/steps.py`` at ``cfg``'s
+    width through the paged kernel: ``make_step``'s prefill step (B 1 x
+    T), ``steps`` decode steps through ``make_serve_step`` and, from a copy
+    of the same prefilled state and on the same tokens, through
+    ``make_serve_step_split``: logits within ``SPLIT_TOL``, the cold tensors
+    bit for bit as before, the hot ones equal to the monolithic state's,
+    attention-layers x steps paged launches each; then one ``make_step``
+    train step (B 1 x ``train_T``) and the dry-run of ``cfg`` x decode_32k
+    on one H100, traced on the host's CPU."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import materialize_batch
+    from repro_torch.kernels.wave_attention import ops
+    from repro_torch.launch.dryrun import lower_one
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import HOT_FIELDS, split_state
+    from repro_torch.serving.steps import (make_serve_step,
+                                           make_serve_step_split, make_step)
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import init_train_state
+    cfg = cfg.replace(retro=dataclasses.replace(cfg.retro, attn_impl="fused"))
+    gen = lambda: torch.Generator(device=device).manual_seed(seed)
+    n_attn = len(attn_kinds(cfg))
+    params = M.init_params(cfg, gen(), device)
+    shape = InputShape(f"prefill_{T}", T, 1, "prefill")
+    batch = materialize_batch(cfg, shape, gen(), device)
+    reset_launches()
+    (logits, state), prefill_ms = _synced_ms(
+        lambda: make_step(cfg, shape)(params, batch))
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (1, cfg.vocab):
+        raise AssertionError(f"prefill step logits {tuple(logits.shape)}")
+    mono = _copy_state(state)
+    cold, hot = split_state(state.kv)
+    before = [{k: t.clone() for k, t in c.items()} for c in cold]
+    serve = make_serve_step(cfg, T)
+    split = make_serve_step_split(cfg, T)
+    tok = logits.argmax(-1).to(torch.int32)
+    toks, mono_lg, mono_ms = [], [], []
+    reset_launches()
+    for _ in range(steps):
+        toks.append(tok)
+        (lg, mono), ms = _synced_ms(lambda: serve(params, mono, tok))
+        mono_lg.append(lg)
+        mono_ms.append(ms)
+        tok = lg.argmax(-1).to(torch.int32)
+    mono_launches = ops.paged_wave_attention.launches
+    reset_launches()
+    split_ms, err, close = [], 0.0, True
+    for i in range(steps):
+        (lg, hot), ms = _synced_ms(lambda: split(params, cold, hot, toks[i]))
+        split_ms.append(ms)
+        err = max(err, float((lg - mono_lg[i]).abs().max()))
+        close &= bool(torch.allclose(lg, mono_lg[i], atol=SPLIT_TOL,
+                                     rtol=SPLIT_TOL))
+    split_launches = ops.paged_wave_attention.launches
+    cold_same = all(torch.equal(c[k], b[k]) for c, b in zip(cold, before)
+                    for k in c)
+    hot_same = all(torch.equal(h[k], getattr(st, k))
+                   for h, st in zip(hot, mono.kv) for k in HOT_FIELDS)
+    mean = lambda xs: sum(xs[1:]) / max(len(xs) - 1, 1)
+    out = dict(arch=cfg.arch_id, prompt=T, steps=steps, prefill_ms=prefill_ms,
+               mono_ms=mono_ms, split_ms=split_ms,
+               mono_ms_mean=mean(mono_ms), split_ms_mean=mean(split_ms),
+               max_abs_diff=err, within_tol=close, cold_bit_identical=cold_same,
+               hot_equal=hot_same, mono_launches=mono_launches,
+               split_launches=split_launches,
+               want_launches=n_attn * steps)
+    log(f"  prefill step B 1 x T {T}: {prefill_ms:.2f} ms; decode ms per step "
+        f"(steps 2-{steps}, synced, CUDA events): monolithic "
+        f"{out['mono_ms_mean']:.2f}, split {out['split_ms_mean']:.2f}")
+    log(f"  split vs monolithic logits: max |diff| {err:.3e} (tol "
+        f"{SPLIT_TOL} atol and rtol: {close}); cold tensors bit-identical: "
+        f"{cold_same}; hot tensors equal: {hot_same}; paged launches "
+        f"monolithic {mono_launches}, split {split_launches} (want "
+        f"{n_attn} x {steps} = {n_attn * steps})")
+    if not (close and cold_same and hot_same
+            and mono_launches == split_launches == n_attn * steps):
+        raise AssertionError(f"split decode step: {out}")
+    del params, state, mono, cold, hot, before, mono_lg, logits, lg
+    torch.cuda.empty_cache()
+
+    tshape = InputShape(f"train_{train_T}", train_T, 1, "train")
+    ts = init_train_state(cfg, gen(), device)
+    tbatch = materialize_batch(cfg, tshape, gen(), device)
+    train = make_step(cfg, tshape, opt_cfg=AdamWConfig(
+        lr=3e-4, warmup_steps=2, total_steps=8))
+    (ts, m), train_ms = _synced_ms(lambda: train(ts, tbatch))
+    out["train_ms"], out["train_loss"] = train_ms, float(m["loss"])
+    log(f"  train step B 1 x T {train_T}: {train_ms:.2f} ms (first step, "
+        f"synced), loss {out['train_loss']:.4f}")
+    if not math.isfinite(out["train_loss"]):
+        raise AssertionError(f"train step loss {out['train_loss']}")
+    del ts, tbatch, m
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rec = lower_one("gemma2_2b", "decode_32k", mesh="h100", verbose=False)
+    out["dryrun"] = rec
+    log(f"  dryrun gemma2-2b x decode_32k on one H100 (the host's CPU, "
+        f"{time.perf_counter() - t0:.1f} s): {rec['flops_per_chip']:.4e} "
+        f"FLOP (model_flops {rec['model_flops_global']:.4e}), "
+        f"{rec['bytes_per_chip']:.4e} B unfused, terms compute "
+        f"{rec['compute_s'] * 1e3:.3f} ms, memory {rec['memory_s'] * 1e3:.3f}"
+        f" ms, collective {rec['collective_s'] * 1e3:.3f} ms "
+        f"(H100 data sheet rates), dominant {rec['dominant']}")
+    if not rec["flops_per_chip"] > rec["model_flops_global"] > 0:
+        raise AssertionError(f"dryrun: {rec}")
+    return out
+
+
+def _phase20_rank(rank, n, cases, retro, softcap, reps):
+    """One gloo rank of phase 20 on cuda:0: ``distributed_wave_attention``
+    over its block of each case's state (the parent's tensors, shared by
+    IPC), then on the long case the rank's pieces timed with CUDA events
+    (``reps`` calls each): its ranking, its attend (partial merge) and both
+    reductions."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import distributed as D
+    from repro_torch.core.attention import (wave_attention_attend,
+                                            wave_decode_rank)
+    out = {}
+    probe = torch.full((4,), float(rank), device="cuda")
+    try:
+        dist.all_reduce(probe, op=dist.ReduceOp.MAX)
+        out["gloo_cuda_max"] = bool((probe == n - 1).all())
+    except Exception as e:  # noqa: BLE001 — reported, not relied on
+        out["gloo_cuda_max"] = f"{type(e).__name__}: {str(e)[:160]}"
+    for name, (q, state, plan) in cases.items():
+        shard = D.shard_state(state, rank, n)
+        out[name] = D.distributed_wave_attention(
+            q, shard, retro, plan, softcap=softcap).cpu()
+    q, state, plan = cases["long"]
+    shard = D.shard_state(state, rank, n)
+    m_loc = shard.centroid.shape[2]
+    lp = D.shard_plan(plan, n, m_loc)
+    B, Hq, hd = q.shape
+    qg = q.reshape(B, shard.centroid.shape[1], -1, hd)
+    pieces = dict(
+        rank=lambda: wave_decode_rank(qg, shard, retro, lp, softcap=softcap,
+                                      cluster_offset=rank * m_loc),
+        attend=lambda: wave_attention_attend(
+            q, shard, retro, lp, *ranked, softcap=softcap,
+            include_steady=rank == 0, return_parts=True),
+        reductions=lambda: D.merge_parts(*parts[:3]),
+        total=lambda: D.distributed_wave_attention(q, shard, retro, plan,
+                                                   softcap=softcap))
+    ranked = pieces["rank"]()
+    parts = pieces["attend"]()
+    for name, fn in pieces.items():
+        fn()
+        dist.barrier()
+        out[f"{name}_ms"] = sum(_synced_ms(fn)[1] for _ in range(reps)) / reps
+    out["m_loc"], out["r_loc"], out["e_loc"] = m_loc, lp.r, lp.e
+    return out
+
+
+def sharded_retrieval(cfg, full_n=SHARD_FULL_N, long_n=SHARD_LONG_N,
+                      n_ranks=SHARD_RANKS, seed=0, reps=10, device="cuda"):
+    """Phase 20: sharded retrieval on one global layer of ``cfg`` (B 1),
+    ``n_ranks`` gloo ranks on ``device`` spawned with a deadline, each
+    holding its ``shard_state`` block of the clusters: at ``full_n`` tokens
+    with r = every local cluster and e = 0 it must match serial
+    ``wave_attention_decode`` within 1e-4; at ``long_n`` tokens (clustered
+    keys, the default plan) its error against full attention must be at
+    most 2x the serial path's plus 1e-3 (the reference's bound). Then
+    perfcmp's three modes timed on the card: full, baseline (serial, jnp
+    and fused, the fused one held against its twin and against jnp), dist
+    (per rank: ranking, attend, both reductions)."""
+    import dataclasses
+    from unittest import mock
+    import numpy as np
+    import torch
+    from repro_torch.core import distributed as D
+    from repro_torch.core.attention import DenseCache
+    from repro_torch.core.wave_index import prefill_build
+    from repro_torch.core.zones import plan_zones
+    from repro_torch.data.pipeline import clustered_keys
+    from repro_torch.kernels.wave_attention import ops
+    from repro_torch.launch.perfcmp import mode_step
+    a = cfg.attn
+    Hkv, Hq, hd, softcap = a.n_kv_heads, a.n_heads, a.head_dim, a.softcap
+    bf16 = getattr(torch, cfg.dtype)
+    retro = dataclasses.replace(cfg.retro, serial_prefill_segments=True)
+    g = torch.Generator(device=device).manual_seed(seed)
+    # q in f32 holding bf16 values: outputs compared in f32, not rounded
+    q_of = lambda t: t.to(bf16).float()
+
+    k = torch.randn((1, full_n, Hkv, hd), generator=g, device=device).to(bf16)
+    v = torch.randn((1, full_n, Hkv, hd), generator=g, device=device).to(bf16)
+    plan1 = plan_zones(full_n, retro, 1024)
+    st1 = prefill_build(k, v, retro, plan1.m_max, dtype=bf16)
+    del k, v
+    pf = plan1._replace(r=plan1.m_max, e=0)
+    q1 = q_of(torch.randn((1, Hq, hd), generator=g, device=device))
+    serial1 = mode_step("baseline", cfg.replace(retro=retro), pf)(q1, st1)
+
+    keys, qv, _ = clustered_keys(long_n, hd, n_hot=6, seed=seed + 1)
+    vals = np.random.default_rng(seed).standard_normal((long_n, hd),
+                                                       dtype=np.float32)
+    per_head = lambda x: torch.from_numpy(x).to(device).to(bf16)[None, :, None] \
+        .expand(1, long_n, Hkv, hd).contiguous()
+    k, v = per_head(keys), per_head(vals)
+    del keys, vals
+    t0 = time.perf_counter()
+    plan2 = plan_zones(long_n, retro, 1024)
+    st2 = prefill_build(k, v, retro, plan2.m_max, dtype=bf16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cache = DenseCache(k.transpose(1, 2).contiguous(),
+                       v.transpose(1, 2).contiguous(),
+                       torch.full((1,), long_n, dtype=torch.int32,
+                                  device=device))
+    del k, v
+    q2 = q_of(torch.from_numpy(qv).to(device)[None, None].expand(1, Hq, hd))
+    cfg2 = cfg.replace(retro=retro)
+    full = mode_step("full", cfg2, plan2)(q2, cache)
+    serial2 = mode_step("baseline", cfg2, plan2)(q2, st2)
+    t0 = time.perf_counter()
+    ranks = D.run_ranks(_phase20_rank, n_ranks,
+                        ({"full": (q1, st1, pf), "long": (q2, st2, plan2)},
+                         retro, softcap, reps), backend="gloo", timeout=300)
+    ranks_s = time.perf_counter() - t0
+    torch.cuda.ipc_collect()
+    err_full = max(float((r["full"].to(device) - serial1).abs().max())
+                   for r in ranks)
+    same = all(torch.equal(r["full"], ranks[0]["full"])
+               and torch.equal(r["long"], ranks[0]["long"]) for r in ranks)
+    e_ser = float(torch.linalg.norm(serial2 - full))
+    e_dist = float(torch.linalg.norm(ranks[0]["long"].to(device) - full))
+    out = dict(layer=f"{cfg.arch_id} global layer: Hkv {Hkv}, G {Hq // Hkv}, "
+               f"hd {hd}, softcap {softcap}, {cfg.dtype}, B 1",
+               ranks=n_ranks, full_n=full_n, full_clusters=plan1.m_max,
+               full_coverage_err=err_full, ranks_agree=same, long_n=long_n,
+               long_clusters=plan2.m_max, plan=dict(r=plan2.r, e=plan2.e),
+               e_ser=e_ser, e_dist=e_dist, build_s=build_s, ranks_s=ranks_s,
+               gloo_cuda_max=ranks[0]["gloo_cuda_max"],
+               per_rank=[{k: r[k] for k in ("rank_ms", "attend_ms",
+                                            "reductions_ms", "total_ms",
+                                            "m_loc", "r_loc", "e_loc")}
+                         for r in ranks],
+               store_gb=st2.k_store.numel() * st2.k_store.element_size() / 1e9,
+               cache_gb=2 * cache.k.numel() * cache.k.element_size() / 1e9)
+    log(f"  {out['layer']}; {n_ranks} gloo ranks on {device} ({ranks_s:.1f} s "
+        f"with their start); a gloo MAX of a CUDA tensor as it is: "
+        f"{out['gloo_cuda_max']}")
+    log(f"  full coverage, {full_n} tokens ({plan1.m_max} clusters, r = "
+        f"every local cluster, e = 0): max |dist - serial| {err_full:.3e} "
+        f"(tol 1e-4); ranks agree bit for bit: {same}")
+    log(f"  {long_n} tokens ({plan2.m_max} clusters, {out['store_gb']:.2f} GB "
+        f"a store, dense cache {out['cache_gb']:.2f} GB, index built in "
+        f"{build_s:.1f} s; plan r {plan2.r}, e {plan2.e}): e_ser "
+        f"{e_ser:.4e}, e_dist {e_dist:.4e} (bound 2 e_ser + 1e-3 = "
+        f"{2 * e_ser + 1e-3:.4e})")
+    if not (err_full <= 1e-4 and same and e_dist <= 2 * e_ser + 1e-3):
+        raise AssertionError(f"sharded retrieval: {out}")
+
+    # the fused baseline at these shapes (r ~600 clusters, e ~7600): the
+    # paged kernel against its plain twin on the same path (the kernel
+    # row's tolerance), and against the "jnp" baseline within the bf16
+    # bound that "jnp" vs the kernels is held to (it rounds q and p to the
+    # stores' bf16; tests/test_kernels.py:40)
+    fused_step = mode_step("baseline", cfg2, plan2, impl="fused")
+    fused2 = fused_step(q2, st2)
+    with mock.patch.object(ops, "paged_wave_attention",
+                           ops.paged_wave_attention_plain):
+        twin2 = fused_step(q2, st2)
+    torch.cuda.synchronize()
+    check = dict(case=f"perfcmp_baseline_fused_{long_n}",
+                 max_abs_err=float((fused2 - twin2).abs().max()),
+                 tol=2e-5 * (1.0 + float(twin2.abs().max())),
+                 jnp_diff=float((fused2 - serial2).abs().max()),
+                 jnp_excess=float(((fused2 - serial2).abs()
+                                   - 3e-2 * (1 + fused2.abs())).max()))
+    out["fused_check"] = check
+    log(f"  fused baseline at {long_n} tokens: max |kernel - twin| "
+        f"{check['max_abs_err']:.3e} (tol {check['tol']:.3e}); max |fused - "
+        f"jnp| {check['jnp_diff']:.3e} (tol 3e-2 (1 + |fused|), worst "
+        f"excess {check['jnp_excess']:.3e})")
+    if not (bool(torch.isfinite(fused2).all())
+            and check["max_abs_err"] <= check["tol"]
+            and check["jnp_excess"] <= 0):
+        raise AssertionError(f"fused baseline: {check}")
+
+    reset_launches()
+    times = dict(
+        full_ms=time_ms(lambda: mode_step("full", cfg2, plan2)(q2, cache)),
+        baseline_jnp_ms=time_ms(
+            lambda: mode_step("baseline", cfg2, plan2)(q2, st2)),
+        baseline_fused_ms=time_ms(lambda: fused_step(q2, st2)))
+    out["fused_launches"] = ops.paged_wave_attention.launches
+    out.update(times)
+    log(f"  perfcmp modes on the card, {long_n} tokens (CUDA events, L2 "
+        f"cold): full {times['full_ms']:.3f} ms; baseline jnp "
+        f"{times['baseline_jnp_ms']:.3f} ms, fused "
+        f"{times['baseline_fused_ms']:.3f} ms ({out['fused_launches']} "
+        f"paged launches; max |kernel - twin| {check['max_abs_err']:.3e})")
+    for i, r in enumerate(out["per_rank"]):
+        log(f"  dist rank {i} of {n_ranks} ({r['m_loc']} clusters, r "
+            f"{r['r_loc']}, e {r['e_loc']}): rank {r['rank_ms']:.3f} ms, "
+            f"attend {r['attend_ms']:.3f} ms, both reductions "
+            f"{r['reductions_ms']:.3f} ms, whole {r['total_ms']:.3f} ms "
+            f"(both ranks share the card)")
+    del st1, st2, cache
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--json", type=Path, default=None,
@@ -3222,6 +3572,28 @@ def main(argv=None):
     sample18["phase_s"] = time.perf_counter() - t0
     log(f"  phase 18: {sample18['phase_s']:.1f} s")
 
+    # ---- phase 19: the step functions at full width -------------------------
+    log(f"phase 19: the step functions, gemma2-2b at full width through "
+        f"attn_impl='fused': make_step's prefill (B 1 x T {STEP_T}), "
+        f"{STEP_STEPS} decode steps monolithic and hot/cold split from one "
+        f"state, one train step (B 1 x T {STEP_TRAIN_T}), the dry-run")
+    t0 = time.perf_counter()
+    steps19 = step_functions(CONFIG)
+    steps19["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 19: {steps19['phase_s']:.1f} s")
+
+    # ---- phase 20: sharded retrieval ---------------------------------------
+    from repro_torch.configs.gemma2_9b import CONFIG as GEMMA9
+    log(f"phase 20: sharded retrieval, one global layer of gemma2-9b over "
+        f"{SHARD_RANKS} gloo ranks on cuda:0: full coverage at "
+        f"{SHARD_FULL_N} tokens, the default plan at {SHARD_LONG_N}, "
+        f"perfcmp's modes timed")
+    t0 = time.perf_counter()
+    shard20 = sharded_retrieval(GEMMA9)
+    results["paged_wave_attention"].append(shard20["fused_check"])
+    shard20["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 20: {shard20['phase_s']:.1f} s")
+
     # the kernel line: launches on the path that runs the kernel (the serve
     # run of its impl; for the two kernels no serving path calls, one call
     # of their op entry point); times and bound at that path's captured
@@ -3251,7 +3623,10 @@ def main(argv=None):
         whisper_fused=fam["serve_whisper"]["launches"],
         whisper_full=fam["serve_whisper_full"]["launches"],
         sampled_fused=sample18["serve"]["launches"],
-        training=train17["launches"]["paged_wave_attention"]),
+        training=train17["launches"]["paged_wave_attention"],
+        serve_step_fused=steps19["mono_launches"],
+        serve_step_split_fused=steps19["split_launches"],
+        perfcmp_baseline_fused=shard20["fused_launches"]),
         wave_attention_merge=dict(
             pallas=serve5["launches"], llava_pallas=serve12p["launches"],
             zamba2_pallas=fam["serve_zamba2_pallas"]["launches"]))
@@ -3305,7 +3680,8 @@ def main(argv=None):
             llava_blocking_vs_chunked=blk_vs_chk12, serve_kimi=serve13,
             kimi_launch=kimi_launch, moe_ffn_kimi=moe13,
             reduced_kimi_card_vs_cpu=red13, kernels=kernels,
-            training=train17, sampling=sample18, **fam),
+            training=train17, sampling=sample18, step_functions=steps19,
+            sharded_retrieval=shard20, **fam),
             indent=1))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

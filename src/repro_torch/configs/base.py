@@ -1,9 +1,10 @@
 """Config system: architecture + RetroInfer knobs.
 
 Port of ``repro/configs/base.py`` (dataclasses only, no JAX). Field names,
-defaults and derived methods are kept identical so a test can compare the
-two packages field by field. ``attn_impl`` is the default decode-attention
-implementation ("jnp", "fused" or "pallas"); ``offload`` (host-offload
+defaults and derived methods (``param_count``, ``active_param_count``) are
+kept identical so a test can compare the two packages field by field;
+``InputShape`` / ``INPUT_SHAPES`` are the assigned shape suite.
+``attn_impl`` is the default decode-attention implementation ("jnp", "fused" or "pallas"); ``offload`` (host-offload
 serving), ``cache_clusters``, ``cache_frac`` and ``cache_policy`` (its
 device block cache) are the serve engine's defaults. Engines and launchers
 may override each per run.
@@ -130,3 +131,55 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks), the
+        reference's formula."""
+        d, L = self.d_model, self.n_layers
+        n = self.vocab * d
+        if not self.tie_embeddings:
+            n += self.vocab * d
+        per_layer = 0
+        if self.attn is not None:
+            a = self.attn
+            qkv = d * a.n_heads * a.head_dim + 2 * d * a.n_kv_heads * a.head_dim
+            per_layer += qkv + a.n_heads * a.head_dim * d
+        if self.moe is not None:
+            per_layer += self.moe.num_experts * 3 * d * self.moe.d_expert
+            per_layer += d * self.moe.num_experts  # router
+        elif self.ssm is not None and self.attn is None:
+            per_layer += 8 * d * d  # rough ssm block size
+        else:
+            per_layer += 3 * d * self.d_ff
+        n += per_layer * L
+        if self.shared_attn_every and self.attn is not None:
+            a = self.attn
+            n += (d * a.n_heads * a.head_dim + 2 * d * a.n_kv_heads * a.head_dim
+                  + a.n_heads * a.head_dim * d + 3 * d * self.d_ff)
+        return n
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: top_k experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        expert = self.n_layers * 3 * self.d_model * self.moe.d_expert
+        return (self.param_count() - expert * self.moe.num_experts
+                + expert * self.moe.top_k)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One input shape of the assigned suite: ``kind`` is train, prefill
+    or decode (one new token against ``seq_len`` tokens of context)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

@@ -16,8 +16,13 @@ The host-offload hooks of the attend half are ported: ``kv_src`` (a device
 block cache addressed by cache-slot ids instead of the cluster stores),
 ``valid`` (degraded decode: clusters whose fetch failed are masked out) and
 ``cover`` (their mass re-enters through the estimation zone,
-``_retrieval_cover``). The sharding hooks ``return_parts`` and
-``include_steady`` are not ported yet.
+``_retrieval_cover``). So are the sharded-retrieval hooks of
+``core/distributed.py``: ``cluster_offset`` (a rank's state holds a
+contiguous block of the cluster axis), ``include_steady`` (one rank
+contributes the steady zone) and ``return_parts`` (the unnormalised
+``(num, den, m, idx)`` that ranks combine). The last two take the
+execution-buffer path, as in the reference, and only with ``impl="jnp"``:
+a kernel impl raises rather than be silently unused.
 
 The dense-cache runtime (``runtime="full"``, the paper's full-attention
 comparator) is here too: ``DenseCache``, ``dense_cache_append`` and
@@ -46,15 +51,18 @@ class WaveAttnOut(NamedTuple):
 
 def rank_clusters(q_group, state: WaveState, plan: ZonePlan,
                   window: Optional[float] = None,
-                  softcap: Optional[float] = None):
+                  softcap: Optional[float] = None, cluster_offset: int = 0):
     """Rank clusters by centroid score. q_group: (B, Hkv, G, hd).
-    Returns (cscore (B,Hkv,G,M) f32, idx_re (B,Hkv,r+e) int64)."""
+    Returns (cscore (B,Hkv,G,M) f32, idx_re (B,Hkv,r+e) int64), ids local
+    to ``state``. ``cluster_offset``: the global id of the state's cluster
+    0 (sharded retrieval: a rank holds M / n consecutive clusters), so a
+    local cluster is in range where ``local id + offset < n_clusters``."""
     hd = q_group.shape[-1]
     scale = 1.0 / math.sqrt(hd)
     cs = torch.einsum("bhgd,bhmd->bhgm", q_group.float(), state.centroid) * scale
     cs = soft_cap(cs, softcap)
     M = state.centroid.shape[2]
-    in_range = torch.arange(M, device=cs.device)[None, :] \
+    in_range = torch.arange(M, device=cs.device)[None, :] + cluster_offset \
         < state.n_clusters[:, None]                          # (B, M)
     valid = in_range[:, None, :] & (state.size > 0)          # (B, Hkv, M)
     if window is not None:
@@ -216,13 +224,14 @@ def wave_decode_rank(qg, state: WaveState, retro: RetroConfig, plan: ZonePlan,
                      softcap: Optional[float] = None,
                      use_estimation: bool = True,
                      overflow_correction: bool = True,
-                     with_cover: bool = False):
+                     cluster_offset: int = 0, with_cover: bool = False):
     """Control-plane half of the decode step: rank clusters and build the
     estimation-zone inputs from the meta index (never the payload stores,
     which the offload path keeps on the host). Returns
     (idx_r, est_logit, cs_e, vs_e), plus the ``_retrieval_cover`` triple
-    with ``with_cover``."""
-    cs, idx_re = rank_clusters(qg, state, plan, window, softcap)
+    with ``with_cover``. ``cluster_offset``: see ``rank_clusters``."""
+    cs, idx_re = rank_clusters(qg, state, plan, window, softcap,
+                               cluster_offset)
     idx_r, idx_e = idx_re[:, :, :plan.r], idx_re[:, :, plan.r:]
     est_logit, cs_e, vs_e = _estimation_zone(
         state, cs, idx_r, idx_e, use_estimation=use_estimation,
@@ -232,22 +241,13 @@ def wave_decode_rank(qg, state: WaveState, retro: RetroConfig, plan: ZonePlan,
     return idx_r, est_logit, cs_e, vs_e
 
 
-def _not_ported(*, include_steady, return_parts):
-    """Raise on the reference's sharded-retrieval hooks (``include_steady``,
-    ``return_parts``)."""
-    given = dict(include_steady=include_steady is not True,
-                 return_parts=bool(return_parts))
-    given = [k for k, v in given.items() if v]
-    if given:
-        raise NotImplementedError(f"{', '.join(given)}: not ported yet")
-
-
 def wave_attention_attend(q, state: WaveState, retro: RetroConfig,
                           plan: ZonePlan, idx, est_logit, cs_e, vs_e, *,
                           kv_src=None, window: Optional[float] = None,
                           softcap: Optional[float] = None, impl: str = "jnp",
-                          include_steady=True, return_parts: bool = False,
-                          valid=None, cover=None) -> WaveAttnOut:
+                          include_steady: bool = True,
+                          return_parts: bool = False,
+                          valid=None, cover=None):
     """Data-plane half: exact attention over the steady zone and the
     ``idx``-addressed clusters, merged with the estimation zone.
 
@@ -257,13 +257,21 @@ def wave_attention_attend(q, state: WaveState, retro: RetroConfig,
     (B, Hkv, r) mask: a 0 cluster is masked out of the retrieval zone and,
     with ``cover`` (from ``wave_decode_rank(..., with_cover=True)``), its
     mass re-enters through the estimation zone. An all-ones mask gates
-    every cover entry to (NEG, 0)."""
-    _not_ported(include_steady=include_steady, return_parts=return_parts)
+    every cover entry to (NEG, 0).
+
+    Sharded retrieval: ``include_steady=False`` masks the steady zone (sink
+    and local buffer) out; ``return_parts`` returns ``(num, den, m, idx)``
+    of ``tripartite_merge_parts_jnp`` in place of a ``WaveAttnOut``. Both
+    need ``impl="jnp"``."""
     B, Hq, hd = q.shape
     Hkv = state.centroid.shape[1]
     qg = q.reshape(B, Hkv, Hq // Hkv, hd)
     r = idx.shape[2]
     impl = resolve_attn_impl(impl)
+    if (return_parts or not include_steady) and impl != "jnp":
+        raise ValueError(
+            "return_parts and include_steady=False take the execution-buffer "
+            f"path (impl 'jnp'); impl {impl!r} would go unused")
 
     # ---- degraded decode: estimation-cover the masked-out clusters ---------
     if valid is not None and cover is not None and r > 0:
@@ -313,6 +321,12 @@ def wave_attention_attend(q, state: WaveState, retro: RetroConfig,
         n_steady = p_exec.shape[2] - r * cap
         ok = ok & torch.cat([torch.ones((B, Hkv, n_steady), dtype=torch.bool,
                                         device=ok.device), ret_ok], 2)
+    if not include_steady:            # another rank contributes the steady zone
+        ok[:, :, :retro.sink + lbuf] = False
+    if return_parts:
+        num, den, m = tripartite_merge_parts_jnp(
+            qg, k_exec, v_exec, ok, est_logit, cs_e, vs_e, softcap=softcap)
+        return num, den, m, idx
     out = tripartite_merge(qg, k_exec, v_exec, ok, est_logit, cs_e, vs_e,
                            softcap=softcap, impl=impl)
     return WaveAttnOut(out.reshape(B, Hq, hd).to(q.dtype), idx)
@@ -373,11 +387,14 @@ def wave_attention_decode(q, state: WaveState, retro: RetroConfig,
                           softcap: Optional[float] = None,
                           use_estimation: bool = True,
                           overflow_correction: bool = True,
-                          impl: str = "jnp", include_steady=True,
-                          return_parts: bool = False) -> WaveAttnOut:
+                          impl: str = "jnp", cluster_offset: int = 0,
+                          include_steady: bool = True,
+                          return_parts: bool = False):
     """One decode step of tripartite attention. q: (B, Hq, hd) at position
     state.length - 1 (its K/V already appended to the local buffer).
-    ``impl``: "jnp", "fused" or "pallas" (see the module docstring)."""
+    ``impl``: "jnp", "fused" or "pallas" (see the module docstring).
+    ``cluster_offset``, ``include_steady``, ``return_parts``: the
+    sharded-retrieval hooks (``rank_clusters``, ``wave_attention_attend``)."""
     B, Hq, hd = q.shape
     Hkv = state.centroid.shape[1]
     qg = q.reshape(B, Hkv, Hq // Hkv, hd)
@@ -385,7 +402,8 @@ def wave_attention_decode(q, state: WaveState, retro: RetroConfig,
     idx_r, est_logit, cs_e, vs_e = wave_decode_rank(
         qg, state, retro, plan, window=window, softcap=softcap,
         use_estimation=use_estimation,
-        overflow_correction=overflow_correction)
+        overflow_correction=overflow_correction,
+        cluster_offset=cluster_offset)
     return wave_attention_attend(q, state, retro, plan, idx_r, est_logit,
                                  cs_e, vs_e, window=window, softcap=softcap,
                                  impl=impl, include_steady=include_steady,

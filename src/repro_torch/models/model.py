@@ -19,6 +19,7 @@ index; "full": a dense KV cache), blocking and chunked admission:
                                plan=..., active=..., attn_impl=...)
     state       = flush_state(cfg, state, runtime=...)
     state       = make_serve_state(cfg, B, seq_len, runtime=..., device=...)
+    param_specs(cfg), serve_state_specs(cfg, B, seq_len, ...)  # meta trees
     supports_offload(cfg, runtime), offload_decode_fns(cfg)  # host offload
 
 ``batch`` keys: tokens (B, T) int; targets (B, T) int and an optional
@@ -60,15 +61,22 @@ def _family(cfg: ModelConfig):
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None):
     """Random parameters on ``device`` (default ``cuda``). ``generator``
-    defaults to one on that device seeded with 0."""
+    defaults to one on that device seeded with 0; the meta device draws
+    nothing (``param_specs``)."""
     _family(cfg)
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     init = {"ssm": rwkv6.init_rwkv6, "hybrid": hybrid.init_hybrid,
             "audio": encdec.init_encdec}.get(cfg.family,
                                              transformer.init_transformer)
     return init(cfg, generator, dev)
+
+
+def param_specs(cfg: ModelConfig):
+    """The parameter tree with meta tensors for leaves (shape and dtype, no
+    storage, no generator): the tree ``init_params`` gives."""
+    return init_params(cfg, device="meta")
 
 
 def _hidden_forward(params, cfg: ModelConfig, batch):
@@ -255,3 +263,10 @@ def make_serve_state(cfg: ModelConfig, B: int, seq_len: int, *,
                 cfg.family, transformer.init_serve_state)
     return init(cfg, B, seq_len, runtime=runtime, gen_headroom=gen_headroom,
                 zero_fill=zero_fill, device=dev)
+
+
+def serve_state_specs(cfg: ModelConfig, B: int, seq_len: int, *,
+                      runtime: str = "retro", gen_headroom: int = 4096):
+    """The serve state ``make_serve_state`` allocates, as meta tensors."""
+    return make_serve_state(cfg, B, seq_len, runtime=runtime,
+                            gen_headroom=gen_headroom, device="meta")

@@ -30,8 +30,10 @@ from repro_torch.models import layers as L
 def _stacked(gen, n, shape, dtype, device, fan_in):
     """(n, *shape) normal weights scaled by 1/sqrt(fan_in), drawn one slab
     at a time (a stacked f32 draw of a full-width expert bank would not
-    fit beside it)."""
+    fit beside it). On the meta device, the empty stack."""
     out = torch.empty((n,) + tuple(shape), dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     for e in range(n):
         w = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=device)

@@ -8,7 +8,9 @@ of blocking admission (flash or block-sparse attention, then
 ``prefill_build``), chunked prefill (exact chunk attention against an
 admission cache while the wave index is built incrementally) and its
 finalize, the decode step with any of the decode-attention impls
-(``attn_impl``: "jnp", "fused", "pallas"), and the two halves of the
+(``attn_impl``: "jnp", "fused", "pallas") and its hot/cold split
+(``decode_step_split``, sharded retrieval with a process group), and the
+two halves of the
 host-offload decode layer with its flush. The JAX layer scan becomes a
 Python loop over per-layer parameter dicts and per-layer states.
 
@@ -26,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as wa
+from repro_torch.core.distributed import distributed_wave_attention
 from repro_torch.core.sparse_prefill import block_sparse_attention
 from repro_torch.core.wave_index import (WaveState, append_token,
                                          flush_segment_offload,
@@ -367,7 +370,7 @@ def decode_step(params, cfg: ModelConfig, state: ServeState, token, *,
                 runtime: str = "retro", plan: ZonePlan,
                 inline_flush: bool = False,
                 active: Optional[torch.Tensor] = None,
-                attn_impl: Optional[str] = None
+                attn_impl: Optional[str] = None, group=None
                 ) -> Tuple[torch.Tensor, ServeState]:
     """One generation step. token: (B,) -> logits (B, V) f32.
 
@@ -379,9 +382,15 @@ def decode_step(params, cfg: ModelConfig, state: ServeState, token, *,
     The full runtime's attention reads the whole dense cache, as the
     reference's compiled step does (no length readback, so the step can be
     captured). Every state update is in place, so the returned state holds
-    the argument's tensors."""
+    the argument's tensors. ``group`` (retro runtime): a
+    ``torch.distributed`` process group over which the cluster axis of
+    every layer's state is sharded (``core.distributed.shard_state``); the
+    attention is then ``distributed_wave_attention``, which runs the "jnp"
+    path only, so any other impl raises."""
     a, retro = cfg.attn, cfg.retro
     impl = wa.resolve_attn_impl(attn_impl or retro.attn_impl)
+    if group is not None:
+        check_group_impl(runtime, impl)
     x = embed_tokens(params, cfg, token)                       # (B, D)
     B = x.shape[0]
     kv = []
@@ -394,9 +403,14 @@ def decode_step(params, cfg: ModelConfig, state: ServeState, token, *,
         q, k, v = q[:, 0], k[:, 0], v[:, 0]                    # (B, H*, hd)
         if runtime == "retro":
             lstate = append_token(lstate, k, v, active=active)
-            o = wa.wave_attention_decode(q, lstate, retro, plan,
-                                         window=window, softcap=a.softcap,
-                                         impl=impl).out
+            if group is not None:
+                o = distributed_wave_attention(q, lstate, retro, plan, group,
+                                               window=window,
+                                               softcap=a.softcap)
+            else:
+                o = wa.wave_attention_decode(q, lstate, retro, plan,
+                                             window=window, softcap=a.softcap,
+                                             impl=impl).out
             if inline_flush:
                 lstate = maybe_flush(lstate, retro)
         else:
@@ -409,6 +423,64 @@ def decode_step(params, cfg: ModelConfig, state: ServeState, token, *,
         kv.append(lstate)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, cfg, x), ServeState(kv=kv)
+
+
+# ---------------------------------------------------------------------------
+# Hot/cold state split. A decode step changes only the steady zone and the
+# counters ("hot"); the cluster stores and the meta index ("cold") change at
+# a flush. ``decode_step_split`` takes the two apart: it writes the hot
+# tensors in place and never writes a cold one, and with a process group
+# each rank holds its own block of the cold cluster axis
+# (``core/distributed.py``).
+# ---------------------------------------------------------------------------
+
+COLD_FIELDS = ("k_store", "v_store", "pos_store", "centroid", "vsum", "size",
+               "stored", "max_pos", "n_clusters")
+# the fields a decode step changes (the local append)
+HOT_FIELDS = ("sink_k", "sink_v", "local_k", "local_v", "local_len", "length")
+
+
+def split_state(kv: List[WaveState]) -> Tuple[List[Dict], List[Dict]]:
+    """Per-layer WaveStates (``ServeState.kv``) -> (cold, hot): per-layer
+    dicts of the same tensors (nothing is copied)."""
+    return ([{f: getattr(st, f) for f in COLD_FIELDS} for st in kv],
+            [{f: getattr(st, f) for f in HOT_FIELDS} for st in kv])
+
+
+def join_state(cold: Dict, hot: Dict) -> WaveState:
+    """One layer's cold and hot dicts -> its WaveState."""
+    return WaveState(**cold, **hot)
+
+
+def check_group_impl(runtime: str, impl: str) -> None:
+    """Sharded retrieval runs the plain path only (as the reference's
+    ``shard_wave_attention``): a kernel choice beside a group raises rather
+    than go unused."""
+    if runtime != "retro":
+        raise ValueError(f"a process group shards the retro runtime's "
+                         f"cluster axis; runtime {runtime!r} has none")
+    if impl != "jnp":
+        raise ValueError(f"sharded retrieval runs the 'jnp' attention "
+                         f"path; attn impl {impl!r} with a process group")
+
+
+def decode_step_split(params, cfg: ModelConfig, cold: List[Dict],
+                      hot: List[Dict], token, *, plan: ZonePlan, group=None,
+                      attn_impl: Optional[str] = None
+                      ) -> Tuple[torch.Tensor, List[Dict]]:
+    """Retro decode over the hot/cold split: -> (logits (B, V) f32, hot).
+
+    ``cold`` / ``hot``: per-layer dicts from ``split_state``, joined into the
+    state ``decode_step`` takes. That step updates the hot tensors in place
+    (the returned dicts hold them) and only reads the cold ones; with
+    ``attn_impl="fused"`` the paged kernel reads the cluster stores where
+    they lie. ``group``: see ``decode_step`` (the reference's ``mesh``).
+    The reference's ``unroll`` has no counterpart: the layer loop is always
+    a Python loop over per-layer state."""
+    state = ServeState(kv=[join_state(c, h) for c, h in zip(cold, hot)])
+    logits, state = decode_step(params, cfg, state, token, plan=plan,
+                                group=group, attn_impl=attn_impl)
+    return logits, split_state(state.kv)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -427,8 +499,6 @@ def decode_step(params, cfg: ModelConfig, state: ServeState, token, *,
 
 PAYLOAD_FIELDS = ("k_store", "v_store", "pos_store")
 LIVE_FIELDS = tuple(f for f in WaveState._fields if f not in PAYLOAD_FIELDS)
-# the fields a decode step changes (the rank half's local append)
-HOT_FIELDS = ("sink_k", "sink_v", "local_k", "local_v", "local_len", "length")
 
 
 def live_wave_state(live: Dict[str, torch.Tensor]) -> WaveState:

@@ -167,15 +167,23 @@ def test_decode_impls_agree():
 
 
 def test_unported_hooks_raise():
+    """The sharded-retrieval hooks (ported since; held against the reference
+    in ``test_torch_distributed.py``) raise with a kernel impl, which they
+    would leave unused; an unknown impl raises."""
     q, state, retro, plan = _state(seed=2)
     pretro = RetroConfig(**{f: getattr(retro, f) for f in
                             RetroConfig.__dataclass_fields__})
     args = (tensor_from_numpy(q, "cpu"), _port_state(state), pretro,
             ZonePlan(*plan))
-    with pytest.raises(NotImplementedError, match="return_parts"):
-        PA.wave_attention_decode(*args, return_parts=True)
-    with pytest.raises(NotImplementedError, match="include_steady"):
-        PA.wave_attention_decode(*args, include_steady=False)
+    for impl in ("fused", "pallas"):
+        with pytest.raises(ValueError, match="return_parts"):
+            PA.wave_attention_decode(*args, impl=impl, return_parts=True)
+        with pytest.raises(ValueError, match="include_steady"):
+            PA.wave_attention_decode(*args, impl=impl, include_steady=False)
+    num, den, m, _ = PA.wave_attention_decode(*args, return_parts=True)
+    out = PA.wave_attention_decode(*args).out
+    np.testing.assert_allclose((num / den[..., None]).reshape(out.shape),
+                               out, atol=1e-6, rtol=1e-6)
     with pytest.raises(ValueError, match="unknown attn impl"):
         PA.wave_attention_decode(*args, impl="flash")
     assert PA.resolve_attn_impl(None) == "jnp"
