@@ -133,7 +133,15 @@
    attention within 2x the serial path's plus 1e-3; the fused serial
    path there against itself with the paged kernel's plain twin (the
    kernel tolerance) and against the "jnp" path (bf16 bound); then
-   perfcmp's three modes timed on the card.
+   perfcmp's three modes timed on the card;
+21. runs the port's retrolint on the card (``run_lint``): the static passes
+   over the shipped tree, the stage contract pass over two serves of
+   full-width gemma2-2b through the paged kernel (chunked + offload,
+   blocking + direct; prompts of 4096 and 3000 tokens, 8 new tokens: one
+   real capture per captured stage, RL101/RL102 on stages that ran the
+   kernel) and the numerics pass on CUDA tensors with the kernels launched;
+   prints ``{"lint": {...}}`` (errors, advice, inventory size, captures per
+   stage, seconds); any lint error fails the run.
 
 Every serve run above decodes through ``ServeEngine``'s compiled stages:
 the first step of the run eagerly, the rest as replays of one captured
@@ -146,8 +154,8 @@ more replay to see the card launch that many. Each decode-step breakdown
 reports, in one call and from one state, the step run eagerly, replayed,
 and replayed from a capture with torch's fused gelu/silu (the MLP before
 the bf16 repair; phase 8 also the full runtime's old formulation, the
-cache upcast to f32, eagerly); after phase 7, phase 3's state is stepped
-again, to tell the state's layout from the machine's state.
+cache upcast to f32, eagerly), each over 4 profiled steps; after phase 7
+the state's layout is compared with phase 3's.
 
 Each attention kernel call is two launches (split, combine); on every
 captured launch the script prints the split grid (rows x splits), checks
@@ -1110,7 +1118,7 @@ def fused_activation_graph(graph, act):
     return alt
 
 
-def decode_breakdown(engine, steps=8, upcast_too=False):
+def decode_breakdown(engine, steps=4, upcast_too=False):
     """Where one decode step's time goes, on the state the serve run left
     (both slots active), in one call: the serve's captured step run eagerly
     on its static buffers, then replayed (``DecodeGraph``), then a replay of
@@ -1827,7 +1835,7 @@ def offload_step_stats(plane, state, tokens, steps=8):
     return res
 
 
-def offload_breakdown(engine, state, max_ctx, steps=8):
+def offload_breakdown(engine, state, max_ctx, steps=4):
     """The offload decode step eagerly and replayed, in one call from one
     state: a copy of the serve's plane (host control plane and block
     caches) stepping a copy of the state's live fields through its stage
@@ -3191,6 +3199,84 @@ def sharded_retrieval(cfg, full_n=SHARD_FULL_N, long_n=SHARD_LONG_N,
     return out
 
 
+# phase 21: the port's retrolint on the card
+LINT_PROMPTS, LINT_NEW = (4096, 3000), 8
+
+
+def run_lint(cfg, card):
+    """Phase 21: the port's retrolint gate on the card. The static passes
+    over the shipped tree (AST, CUDA kernels; the empty port baseline), the
+    stage contract over two serves of full-width gemma2-2b through the paged
+    kernel (chunked + offload, blocking + direct; B 2, prompts of
+    ``LINT_PROMPTS`` tokens, ``LINT_NEW`` new tokens each: the captures are
+    real, so RL103 counts one ``OffloadStage`` and one ``DecodeGraph``
+    capture), and the numerics pass on real CUDA tensors with the kernels
+    launched. The flush stages, which a few decode steps never reach, are
+    left to the CPU pass (its tiny serves cross flushes). Any finding that
+    is an error fails the phase."""
+    import torch
+    from repro_torch.analysis import ast_rules, kernel_check, stage_check
+    from repro_torch.analysis.findings import (BASELINE_NAME, apply_baseline,
+                                               load_baseline)
+    from repro_torch.analysis.numerics_check import run_numerics_checks
+    from repro_torch.kernels.wave_attention import ops
+    from repro_torch.models import model as M
+
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    static = ast_rules.lint_tree(str(ROOT)) + kernel_check.check_tree(
+        str(ROOT))
+    static_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    reports = []
+    ops.paged_wave_attention.launches = 0
+    contract = stage_check.run_contract_checks(
+        cfg=cfg, params=params, device="cuda", lengths=LINT_PROMPTS,
+        max_new=LINT_NEW, attn_impl="fused",
+        unplanned=("flush", "offload_flush"), reports=reports)
+    torch.cuda.synchronize()
+    contract_s = time.perf_counter() - t0
+    launches = ops.paged_wave_attention.launches
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    numerics = run_numerics_checks(device="cuda", fake=False)
+    torch.cuda.synchronize()
+    numerics_s = time.perf_counter() - t0
+    findings = apply_baseline(static + contract + numerics,
+                              load_baseline(str(ROOT / BASELINE_NAME)))
+    errors = [f for f in findings if f.severity == "error"]
+    advice = [f for f in findings if f.severity != "error"]
+    for f in sorted(findings, key=lambda f: (f.path, f.line, f.rule)):
+        log("  " + f.render())
+    captures = stage_check.captures_per_stage(reports)
+    calls = {r.label: {n: rec.calls for n, rec in
+                       sorted(r.recorder.records.items())} for r in reports}
+    res = dict(errors=len(errors), advice=len(advice),
+               inventory=sum(f.rule == "RL406" for f in advice),
+               captures=captures, stage_calls=calls,
+               paged_launches=launches,
+               serve_s={r.label: r.seconds for r in reports},
+               static_s=static_s, contract_s=contract_s,
+               numerics_s=numerics_s,
+               seconds=time.perf_counter() - t_all, card=card)
+    log(json.dumps({"lint": res}))
+    if errors:
+        raise RuntimeError(f"phase 21: {len(errors)} lint error(s), first: "
+                           f"{errors[0].render()}")
+    want = {s: 1 for s in ("decode", "embed_tokens", "rank_fn", "attend_fn",
+                           "unembed_logits", "cache_upd", "cache_stage")}
+    if captures != want:
+        raise RuntimeError(f"phase 21: captures per stage {captures}, "
+                           f"expected {want}")
+    if launches == 0:
+        raise RuntimeError("phase 21: the stage pass never launched the "
+                           "paged kernel")
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--json", type=Path, default=None,
@@ -3291,7 +3377,6 @@ def main(argv=None):
         "captured step eagerly, then replayed")
     breakdown = decode_breakdown(engine)
     layout3 = state_layout(engine.last_state)
-    engine3 = engine                    # stepped again after phase 7
     del engine
     torch.cuda.empty_cache()
 
@@ -3369,40 +3454,22 @@ def main(argv=None):
     del taken7
     log("  decode-step breakdown (after the run, both slots decoding)")
     breakdown7 = decode_breakdown(engine7)
-    # why an eager step's host time differs between phases. Layout: every
-    # tensor of the state after blocking admission against phase 3's after
-    # chunked admission; machine state: phase 3's state stepped again, now,
-    # in this process
+    # the state after blocking admission against phase 3's after chunked
+    # admission, tensor by tensor (an eager step's host time differs
+    # between the phases: the layout is not why)
     layout7 = state_layout(engine7.last_state)
     layout_diff = [(a, b) for a, b in zip(layout3, layout7) if a != b]
     log(f"  host time: state layout after blocking vs chunked admission: "
         f"{len(layout7)} tensors, {len(layout_diff)} differ "
         f"{layout_diff[:4] or ''}")
-    log("  host time: phase 3's state, stepped again after phase 7")
-    breakdown3_again = decode_breakdown(engine3)
-    # and again with every object alive now moved out of the cyclic
-    # collector's view: what the collector's passes over a grown heap cost
-    import gc
-    n_objects = len(gc.get_objects())
-    gc.freeze()
-    try:
-        log("  host time: the same, the collector's heap frozen (gc.freeze)")
-        breakdown3_frozen = decode_breakdown(engine3)
-    finally:
-        gc.unfreeze()
     eager_ms = {name: b["eager"]["enqueue_ms"] for name, b in (
-        ("phase3", breakdown), ("phase7", breakdown7),
-        ("phase3_again", breakdown3_again),
-        ("phase3_frozen", breakdown3_frozen))}
+        ("phase3", breakdown), ("phase7", breakdown7))}
     host_check = dict(layout_tensors=len(layout7), layout_differs=layout_diff,
-                      python_objects=n_objects, eager_host_ms=eager_ms)
+                      eager_host_ms=eager_ms)
     log(f"  host time: eager ms per step: phase 3 {eager_ms['phase3']:.2f}, "
-        f"phase 7 {eager_ms['phase7']:.2f}, phase 3's state again "
-        f"{eager_ms['phase3_again']:.2f}, with the heap frozen "
-        f"{eager_ms['phase3_frozen']:.2f}; {n_objects} Python objects "
-        f"tracked")
+        f"phase 7 {eager_ms['phase7']:.2f}")
     params7 = engine7.params
-    del engine7, engine3
+    del engine7
     torch.cuda.empty_cache()
     build_check = build_bit_check(params7, CONFIG)
     blk_vs_chk = blocking_vs_chunked_logits(params7, CONFIG)
@@ -3594,6 +3661,15 @@ def main(argv=None):
     shard20["phase_s"] = time.perf_counter() - t0
     log(f"  phase 20: {shard20['phase_s']:.1f} s")
 
+    # ---- phase 21: the port's retrolint on the card --------------------------
+    log(f"phase 21: retrolint on the card: the static passes over the "
+        f"shipped tree, the stage contract over full-width gemma2-2b served "
+        f"through the paged kernel (chunked + offload, blocking + direct; "
+        f"prompts {LINT_PROMPTS}, {LINT_NEW} new tokens), the numerics pass "
+        f"on CUDA tensors")
+    lint21 = run_lint(CONFIG, card)
+    log(f"  phase 21: {lint21['seconds']:.1f} s")
+
     # the kernel line: launches on the path that runs the kernel (the serve
     # run of its impl; for the two kernels no serving path calls, one call
     # of their op entry point); times and bound at that path's captured
@@ -3626,7 +3702,8 @@ def main(argv=None):
         training=train17["launches"]["paged_wave_attention"],
         serve_step_fused=steps19["mono_launches"],
         serve_step_split_fused=steps19["split_launches"],
-        perfcmp_baseline_fused=shard20["fused_launches"]),
+        perfcmp_baseline_fused=shard20["fused_launches"],
+        lint_contract_fused=lint21["paged_launches"]),
         wave_attention_merge=dict(
             pallas=serve5["launches"], llava_pallas=serve12p["launches"],
             zamba2_pallas=fam["serve_zamba2_pallas"]["launches"]))
@@ -3662,8 +3739,6 @@ def main(argv=None):
             reduced_offload_card_vs_cpu=red_offload, serve_blocking=serve7,
             decode_breakdown_blocking=breakdown7,
             decode_breakdown_minitron=breakdown9, host_time_check=host_check,
-            decode_breakdown_phase3_after_phase7=breakdown3_again,
-            decode_breakdown_phase3_gc_frozen=breakdown3_frozen,
             compiled_step=compiled,
             build_bit_check=build_check, blocking_vs_chunked=blk_vs_chk,
             sparse_prefill=sparse, serve_full=serve8,
@@ -3681,7 +3756,7 @@ def main(argv=None):
             kimi_launch=kimi_launch, moe_ffn_kimi=moe13,
             reduced_kimi_card_vs_cpu=red13, kernels=kernels,
             training=train17, sampling=sample18, step_functions=steps19,
-            sharded_retrieval=shard20, **fam),
+            sharded_retrieval=shard20, lint=lint21, **fam),
             indent=1))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

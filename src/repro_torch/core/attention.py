@@ -336,23 +336,21 @@ def tripartite_merge_parts_jnp(qg, k_exec, v_exec, valid, est_logit, cs_e,
                                vs_e, *, softcap: Optional[float] = None):
     """Unnormalized merge: (num (B,H,G,hd), den (B,H,G), m (B,H,G)), with
     num/den scaled by exp(-m). The reference keeps K/V in their storage
-    dtype, rounds q (and later p) to it, and accumulates in f32; torch has no
-    ``preferred_element_type``, so the operands are rounded to the storage
-    dtype and then multiplied in f32 (products of bf16 values are exact in
-    f32, so this computes what the reference computes)."""
+    dtype, rounds q (and later p) to it, and accumulates in f32: so do the
+    products here (``_f32_product``: f32 outputs from storage-dtype operands
+    on the card; the CPU upcasts, exactly, since products of bf16 values are
+    exact in f32)."""
     hd = qg.shape[-1]
     scale = 1.0 / math.sqrt(hd)
     f32 = torch.float32
-    s = torch.einsum("bhgd,bhtd->bhgt", qg.to(k_exec.dtype).to(f32),
-                     k_exec.to(f32)) * scale
+    s = _f32_product(qg.to(k_exec.dtype), k_exec.transpose(2, 3)) * scale
     s = soft_cap(s, softcap)
     s = torch.where(valid[:, :, None, :], s, torch.full_like(s, NEG))
     m = torch.maximum(s.amax(dim=-1), est_logit.amax(dim=-1))  # (B,H,G)
     m = torch.clamp(m, min=-1e20)
     p = torch.exp(s - m[..., None])
     den = p.sum(dim=-1)
-    num = torch.einsum("bhgt,bhtd->bhgd", p.to(v_exec.dtype).to(f32),
-                       v_exec.to(f32))
+    num = _f32_product(p.to(v_exec.dtype), v_exec)
     live = est_logit > NEG / 2
     zero = torch.zeros_like(est_logit)
     w_den = torch.where(live, torch.exp(est_logit - m[..., None]), zero)

@@ -1,6 +1,7 @@
 """Segmented spherical k-means (paper Sec. 4.2, "segmented clustering").
 
-Port of ``repro/core/clustering.py``. The JAX module works on one
+Port of ``repro/core/clustering.py`` (with its Fig. 19b helpers
+``clustering_recall`` and ``positions_to_local``). The JAX module works on one
 (batch, head) segment and is vmapped by its callers; here every function is
 batched over a leading segment axis S (callers flatten (B, H) into it). The
 reference computes this in jnp outside any Pallas kernel (its k-means kernel
@@ -180,3 +181,35 @@ def segmented_cluster(keys, values, positions, segment: int, avg_cluster: int,
               positions.reshape(S * n_seg, segment),
               None if valid is None else valid.reshape(S * n_seg, segment))
     return ClusterResult(*(a.reshape((S, -1) + a.shape[2:]) for a in res))
+
+
+def _top_k(x, k: int):
+    """The ids of the k largest entries, descending; equal values by lower
+    id, as ``lax.top_k`` orders them (a stable descending sort)."""
+    return torch.sort(x, descending=True, stable=True)[1][:k]
+
+
+def clustering_recall(q, keys, result: ClusterResult, r: int,
+                      topk: int = 100):
+    """Recall@topk of the retrieval zone vs the exact top attention scores
+    (the paper's Fig. 19b analysis): the share of the ``topk`` keys with the
+    largest ``<key, q>`` whose position lies in one of the ``r`` clusters
+    with the largest ``<centroid, q>``.
+
+    q: (hd,); keys: (n, hd); ``result``: one sequence's stores (a leading
+    cluster axis: index a batched ``ClusterResult`` by its row first).
+    Returns a 0-dim f32 tensor."""
+    n = keys.shape[0]
+    scores = keys.float() @ q.float()
+    true_top = _top_k(scores, topk)
+    top_c = _top_k(result.centroid.float() @ q.float(), r)
+    pos0 = positions_to_local(result.pos_store[top_c].reshape(-1), n)
+    sel = torch.zeros(n + 1, dtype=torch.bool, device=keys.device)
+    sel[pos0.long().clamp(0, n)] = True          # slot n: the dropped ones
+    return sel[:n][true_top].float().mean()
+
+
+def positions_to_local(pos, n: int):
+    """Map absolute positions to [0, n) assuming the segmenting started at
+    0; the -1 pads map to n (out of range: dropped)."""
+    return torch.where(pos >= 0, pos, torch.full_like(pos, n))

@@ -289,27 +289,27 @@ def _flush_stage(cp: ChunkedPrefill, retro: RetroConfig) -> ChunkedPrefill:
     chunks that complete no segment run no k-means."""
     seg = retro.prefill_segment
     rows = cp.staged >= seg + retro.local
-    if not bool(rows.any()):
+    if not bool(rows.any()):  # retrolint: sync(chunk completes a segment?)
         return cp
     start = cp.seen - cp.staged                  # abs position of stage[0]
     pos = start[:, None] + torch.arange(seg, dtype=torch.int32,
                                         device=start.device)[None, :]
     res = _cluster_rows(cp.stage_k[:, :, :seg], cp.stage_v[:, :, :seg], pos,
                         retro)
-    state = _write_clusters(cp.state, res, cp.state.n_clusters, rows)
+    _write_clusters(cp.state, res, cp.state.n_clusters, rows)
     _roll_rows(cp.stage_k, seg, rows)
     _roll_rows(cp.stage_v, seg, rows)
-    return ChunkedPrefill(
-        state=state, stage_k=cp.stage_k, stage_v=cp.stage_v,
-        staged=torch.where(rows, cp.staged - seg, cp.staged), seen=cp.seen)
+    cp.staged.sub_(rows.to(torch.int32) * seg)
+    return cp
 
 
 def prefill_append_chunk(cp: ChunkedPrefill, k_chunk, v_chunk,
                          retro: RetroConfig, chunk_lens=None) -> ChunkedPrefill:
     """Extend a streaming build with the next (B, C, H, hd) chunk of prompt
-    K/V. Positions < sink fill the sink zone, the rest append to the staging
-    buffer; full segments are clustered as they become safe.
-    ``chunk_lens``: optional (B,) valid prefix of this chunk per row."""
+    K/V, in place (counters too). Positions < sink fill the sink zone, the
+    rest append to the staging buffer; full segments are clustered as they
+    become safe. ``chunk_lens``: optional (B,) valid prefix of this chunk
+    per row."""
     B, C, H, hd = k_chunk.shape
     dev = k_chunk.device
     sink = retro.sink
@@ -334,10 +334,9 @@ def prefill_append_chunk(cp: ChunkedPrefill, k_chunk, v_chunk,
     scatter_chunk_rows(st.sink_v, vc, sink_idx)
     scatter_chunk_rows(cp.stage_k, kc, stage_idx)
     scatter_chunk_rows(cp.stage_v, vc, stage_idx)
-    staged = cp.staged + (clens - torch.minimum(
-        torch.clamp(sink - cp.seen, min=0), clens))
-    cp = ChunkedPrefill(state=st, stage_k=cp.stage_k, stage_v=cp.stage_v,
-                        staged=staged, seen=cp.seen + clens)
+    cp.staged.add_(clens - torch.minimum(torch.clamp(sink - cp.seen, min=0),
+                                         clens))
+    cp.seen.add_(clens)
     for _ in range(-(-C // retro.prefill_segment)):
         cp = _flush_stage(cp, retro)
     return cp
@@ -431,6 +430,6 @@ def maybe_flush(state: WaveState, retro: RetroConfig) -> WaveState:
     """Flush (per-row masked) iff any row's staging buffer is full. The
     reference decides inside jit with ``lax.cond``; here the check reads one
     flag back."""
-    if bool((state.local_len >= local_buffer_size(retro)).any()):
+    if bool((state.local_len >= local_buffer_size(retro)).any()):  # retrolint: sync(flush flag)
         return flush_segment(state, retro)
     return state

@@ -156,7 +156,8 @@ def rounded(c: float, dtype: torch.dtype) -> float:
     """``c`` rounded to ``dtype``: the reference's weakly typed Python
     constants take the array's dtype before the op. (A tensor op with a
     Python scalar computes with the unrounded scalar.)"""
-    return float(torch.tensor(c, dtype=torch.float64).to(dtype))
+    # a CPU scalar on every device: no wait on the card, even when captured
+    return float(torch.tensor(c, dtype=torch.float64).to(dtype))  # retrolint: sync(host constant)
 
 
 def sigmoid(x):

@@ -279,7 +279,8 @@ def _cache_append_chunk(cache: wa.DenseCache, k, v, clens) -> wa.DenseCache:
                       torch.full_like(j, cap))
     scatter_chunk_rows(cache.k, k.transpose(1, 2), idx)
     scatter_chunk_rows(cache.v, v.transpose(1, 2), idx)
-    return wa.DenseCache(cache.k, cache.v, cache.length + clens)
+    cache.length.add_(clens)
+    return cache
 
 
 def _chunk_attention(q, cache: wa.DenseCache, t0, clens, *, window=None,
@@ -320,7 +321,8 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, state: PrefillChunkState,
     dev = tokens.device
     clens = torch.full((B,), C, dtype=torch.int32, device=dev) \
         if chunk_lens is None else chunk_lens.to(torch.int32)
-    t0 = state.cache[0].length                               # (B,)
+    # a copy: the cache appends below advance the lengths in place
+    t0 = state.cache[0].length.clone()                       # (B,)
     positions = t0[:, None] + torch.arange(C, device=dev)    # (B, C)
     x = embed_tokens(params, cfg, tokens)
     if patch_embeds is not None:

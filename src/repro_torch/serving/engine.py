@@ -184,6 +184,182 @@ class ServeMetrics:
         return float(np.percentile(self.ttft_s, 99)) if self.ttft_s else 0.0
 
 
+# ---------------------------------------------------------------------------
+# Stage contract, consumed by the port's retrolint (``repro_torch.analysis``);
+# the counterpart of the reference's ``SERVE_STAGES``, with the same stage
+# names, effects, memory spaces and numerics contract. Per stage:
+#   * ``fn``: the callable that runs it, "module:attribute" (a method's
+#     ``self`` is argument 0); stages that share one callable are told
+#     apart by the trace pass (``analysis/stage_check.py``: ``_route``);
+#   * ``donate``: the positional arguments the stage updates IN PLACE (what
+#     the port does where the reference donates): every tensor of them keeps
+#     its address and is written (rule RL102), and no other argument is
+#     written;
+#   * ``budget``: CUDA graph captures over a serve run (rule RL103):
+#       "per_geometry": captured once per serve geometry by the graph that
+#                       owns it (``graphs.DecodeGraph`` / ``OffloadStage``:
+#                       their ``STAGES``); the CPU runs it eagerly
+#       "eager":        run eagerly, never captured (admission, flushes,
+#                       first-token sampling)
+#       "host":         a control-plane step of the offload plane (no device
+#                       work; a schedule event only)
+#   * ``copy_ok``: arguments a fresh same-shaped output does not copy (RL104);
+#   * ``effects`` / ``space``: the abstract buffers it reads, writes, donates
+#     or passes through, for the happens-before checker (RL301-RL305:
+#     ``analysis/schedule_model.py``), as in the reference;
+#   * ``numerics``: the f32 contract of every device stage (RL401-RL405).
+# ---------------------------------------------------------------------------
+_ENGINE, _MODEL, _GRAPHS, _TF = ("repro_torch.serving.engine",
+                                 "repro_torch.models.model",
+                                 "repro_torch.serving.graphs",
+                                 "repro_torch.models.transformer")
+SERVE_STAGES: Dict[str, Dict[str, Any]] = {
+    "graft":           dict(donate=(0,), budget="eager", space="device",
+                            fn=f"{_ENGINE}:graft",
+                            effects=dict(reads=("serve_state", "slot_state"),
+                                         writes=("serve_state",),
+                                         donates=("serve_state",))),
+    "argmax_ids":      dict(donate=(), budget="eager", space="device",
+                            fn=f"{_ENGINE}:Sampler.__call__",
+                            effects=dict(reads=("logits",),
+                                         writes=("tokens",))),
+    "categorical_ids": dict(donate=(), budget="eager", space="device",
+                            fn=f"{_ENGINE}:Sampler.__call__",
+                            effects=dict(reads=("logits",),
+                                         writes=("tokens",))),
+    "merge_tokens":    dict(donate=(0,), budget="eager", space="device",
+                            fn=f"{_ENGINE}:merge_tokens",
+                            effects=dict(reads=("tokens",),
+                                         writes=("tokens",))),
+    # admission
+    "prefill":         dict(donate=(), budget="eager", space="device",
+                            fn=f"{_MODEL}:apply_prefill",
+                            effects=dict(reads=("prompt",),
+                                         writes=("slot_state",))),
+    "chunk":           dict(donate=(3,), budget="eager", space="device",
+                            fn=f"{_MODEL}:apply_prefill_chunk",
+                            effects=dict(reads=("prompt", "chunk_state"),
+                                         writes=("chunk_state",),
+                                         donates=("chunk_state",))),
+    "chunk_pe":        dict(donate=(3,), budget="eager", space="device",
+                            fn=f"{_MODEL}:apply_prefill_chunk",
+                            effects=dict(reads=("prompt", "chunk_state"),
+                                         writes=("chunk_state",),
+                                         donates=("chunk_state",))),
+    # finalize clusters the staged tail into the chunk state's wave index,
+    # in place, and returns it as the single-row serve state that ``graft``
+    # then copies into the batch state
+    "fin":             dict(donate=(1,), budget="eager", space="device",
+                            fn=f"{_MODEL}:finalize_prefill_chunk",
+                            effects=dict(reads=("serve_state",
+                                                "chunk_state"),
+                                         writes=("serve_state",
+                                                 "slot_state"),
+                                         donates=("serve_state",))),
+    # direct-store decode
+    "decode":          dict(donate=(2,), budget="per_geometry",
+                            space="device", fn=f"{_MODEL}:apply_decode",
+                            effects=dict(reads=("tokens", "serve_state"),
+                                         writes=("logits", "serve_state"),
+                                         donates=("serve_state",))),
+    "flush":           dict(donate=(1,), budget="eager", space="device",
+                            fn=f"{_MODEL}:flush_state",
+                            effects=dict(reads=("serve_state",),
+                                         writes=("serve_state",),
+                                         donates=("serve_state",))),
+    # host-offload decode plane (the device stream: ``OffloadStage``)
+    "embed_tokens":    dict(donate=(), budget="per_geometry", space="device",
+                            fn=f"{_TF}:decode_embed",
+                            effects=dict(reads=("tokens",),
+                                         writes=("hidden",))),
+    "rank_fn":         dict(donate=(3,), budget="per_geometry",
+                            space="device", fn=f"{_TF}:offload_decode_rank",
+                            effects=dict(reads=("hidden", "live[l]"),
+                                         writes=("ctx[l]", "ids[l]",
+                                                 "live[l]"),
+                                         donates=("live[l]",))),
+    "attend_fn":       dict(donate=(), budget="per_geometry", space="device",
+                            fn=f"{_TF}:offload_decode_attend",
+                            effects=dict(reads=("hidden", "ctx[l]",
+                                                "live[l]", "cache_body[l]",
+                                                "cache_tail[l]", "slots[l]",
+                                                "valid[l]"),
+                                         writes=("hidden",))),
+    "unembed_logits":  dict(donate=(), budget="per_geometry", space="device",
+                            fn=f"{_TF}:decode_unembed",
+                            effects=dict(reads=("hidden",),
+                                         writes=("logits",))),
+    # one captured update (``graphs.offload_cache_update``) serves both of
+    # the reference's variants: with admissions queued (cache_upd) and
+    # without (cache_stage); the staging tail is overwritten wholesale, so
+    # it is not a data read; the body IS (the scatter keeps other slots)
+    "cache_upd":       dict(donate=(0, 1, 2), budget="per_geometry",
+                            space="device",
+                            fn=f"{_GRAPHS}:offload_cache_update",
+                            effects=dict(reads=("cache_body[l]",
+                                                "adm_queue[l]", "miss[l]"),
+                                         writes=("cache_body[l]",
+                                                 "cache_tail[l]"),
+                                         donates=("cache_body[l]",
+                                                  "cache_tail[l]"))),
+    # cache_stage writes only the staging tail; the body rides through
+    # (``passes``), which keeps RL305 from treating it as clobbered
+    "cache_stage":     dict(donate=(0, 1, 2), budget="per_geometry",
+                            space="device",
+                            fn=f"{_GRAPHS}:offload_cache_update",
+                            effects=dict(reads=("miss[l]",),
+                                         writes=("cache_tail[l]",),
+                                         donates=("cache_body[l]",
+                                                  "cache_tail[l]"),
+                                         passes=("cache_body[l]",))),
+    "offload_flush":   dict(donate=(1,), budget="eager", space="device",
+                            fn=f"{_TF}:offload_flush",
+                            effects=dict(reads=("live[*]",),
+                                         writes=("live[*]", "flush_blocks"),
+                                         donates=("live[*]",))),
+    # host control plane of the offload decode step (schedule events traced
+    # through _OffloadPlane.trace)
+    "readback_start":  dict(donate=(), budget="host", space="host",
+                            effects=dict(reads=("ids[l]",))),
+    "readback_ids":    dict(donate=(), budget="host", space="host",
+                            effects=dict(reads=("ids[l]",),
+                                         writes=("ids_host[l]",))),
+    # translate also builds the per-cluster validity mask (valid[l], link
+    # space): 0 marks a miss whose fetch failed this step
+    "translate":       dict(donate=(), budget="host", space="host",
+                            effects=dict(reads=("ids_host[l]", "cmt[l]",
+                                                "host_store[l]",
+                                                "pending[l]"),
+                                         writes=("slots[l]", "miss[l]",
+                                                 "valid[l]", "pending[l]",
+                                                 "cmt[l]"))),
+    "drain_admissions": dict(donate=(), budget="host", space="host",
+                             effects=dict(reads=("pending[l]",
+                                                 "host_store[l]"),
+                                          writes=("cmt[l]", "pending[l]",
+                                                  "adm_queue[l]"))),
+    "readback_flush":  dict(donate=(), budget="host", space="host",
+                            effects=dict(reads=("flush_blocks",))),
+    "host_flush":      dict(donate=(), budget="host", space="host",
+                            effects=dict(writes=("host_store[*]",))),
+    "admit_slot":      dict(donate=(), budget="host", space="host",
+                            effects=dict(writes=("host_store[*]", "cmt[*]",
+                                                 "pending[*]",
+                                                 "adm_queue[*]"))),
+}
+
+# The numerics contract of every device stage (rules RL401-RL405,
+# ``analysis/numerics_check.py``): exp/log/LSE chains in f32 (softmax),
+# matmuls with f32 outputs (accum), and no narrowing but the stage's output
+# and same-dtype store writes ("output-only"; "free" opts a stage out).
+NUMERICS_F32: Dict[str, str] = dict(softmax="float32", accum="float32",
+                                    narrow="output-only")
+for _contract in SERVE_STAGES.values():
+    if _contract["space"] == "device":
+        _contract.setdefault("numerics", NUMERICS_F32)
+del _contract
+
+
 @dataclass
 class _Admission:
     """One slot's admission: a chunked one in progress, or a finished
@@ -209,8 +385,8 @@ class _Readback:
 
     def get(self) -> np.ndarray:
         if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
+            self.event.synchronize()  # retrolint: sync(lagged id harvest)
+        return self.host.numpy()  # retrolint: sync(the awaited ids)
 
 
 def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -236,6 +412,13 @@ def graft(big, small, slot: int):
     for b, s in zip(leaves(big), leaves(small), strict=True):
         b[slot:slot + 1].copy_(s)
     return big
+
+
+def merge_tokens(tokens: torch.Tensor, upd: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """The admitted rows' first tokens ``upd`` into the (B,) token buffer
+    where ``mask``, in place (the buffer is the captured step's input)."""
+    return tokens.copy_(torch.where(mask, upd, tokens))
 
 
 def _pack(k, v, p):
@@ -357,11 +540,12 @@ class _OffloadPlane:
         self._step += 1
         self.trace("admit_slot", -1, "host", self._step)
         t0 = time.perf_counter()
-        self.ncl[i] = int(st1.kv[0].n_clusters[0])
+        self.ncl[i] = int(st1.kv[0].n_clusters[0])  # retrolint: sync(cluster-count mirror)
         for l in range(self.L):
             st = st1.kv[l]
-            host = _pack(st.k_store[0], st.v_store[0],
-                         st.pos_store[0]).cpu().numpy()      # (H, M, D)
+            host = _pack(  # retrolint: sync(store offload)
+                st.k_store[0], st.v_store[0], st.pos_store[0]) \
+                .cpu().numpy()                                  # (H, M, D)
             old = self.bufs[l][i]
             if old is not None:
                 for buf in old:
@@ -532,8 +716,9 @@ class _OffloadPlane:
         flushed = np.where(rows)[0]
         sel = self._h2d(flushed)
         self.trace("readback_flush", -1, "sync", self._step)
-        blocks = torch.stack([_pack(c.k_store, c.v_store, c.pos_store)[sel]
-                              for c in res]).cpu().numpy()
+        blocks = torch.stack(  # retrolint: sync(flush blocks)
+            [_pack(c.k_store, c.v_store, c.pos_store)[sel] for c in res]) \
+            .cpu().numpy()
         self.trace("host_flush", -1, "host", self._step)
         k_new = blocks.shape[3]                   # (L, rows, H, k_new, D)
         for j, b in enumerate(flushed):
@@ -826,7 +1011,8 @@ class ServeEngine:
                 # coalesced first-token sampling: ONE host sync for every
                 # request admitted this iteration
                 stacked = torch.cat([a.logits for _, a in completed], 0)
-                first = self._sample_dev(stacked).cpu().numpy()
+                first = self._sample_dev(stacked)
+                first = first.cpu().numpy()  # retrolint: sync(coalesced first tokens)
                 now = time.perf_counter()
                 upd = np.zeros(B, np.int32)
                 mask = np.zeros(B, bool)
@@ -849,8 +1035,8 @@ class ServeEngine:
                                     max(adm.consumed - cfg.retro.sink, 0))
                     if len(req.out_tokens) >= req.max_new_tokens:
                         finish(i, req)
-                tokens_dev.copy_(torch.where(to_device(mask, dev),
-                                             to_device(upd, dev), tokens_dev))
+                merge_tokens(tokens_dev, to_device(upd, dev),
+                             to_device(mask, dev))
             metrics.prefill_s += time.perf_counter() - t0
 
             # ---- one decode step over the whole slot batch -----------------

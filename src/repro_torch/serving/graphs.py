@@ -47,11 +47,15 @@ from repro_torch.models.transformer import LIVE_FIELDS
 
 def leaves(tree):
     """Every tensor of a serve state, in order: the state NamedTuples of
-    every family and their per-layer lists are walked as tuples."""
+    every family and their per-layer lists are walked as tuples, dicts (the
+    offload plane's live fields) by their values."""
     if isinstance(tree, torch.Tensor):
         yield tree
     elif isinstance(tree, (list, tuple)):
         for t in tree:
+            yield from leaves(t)
+    elif isinstance(tree, dict):
+        for t in tree.values():
             yield from leaves(t)
 
 
@@ -71,6 +75,9 @@ class DecodeGraph:
     fresh numbers). ``tokens``: the (B,) int32 token buffer, which
     the caller writes in place (admissions) and the step overwrites with
     its ids. ``captures`` counts captures, ``replays`` replays."""
+
+    # the SERVE_STAGES entries this graph captures (rule RL103)
+    STAGES = ("decode",)
 
     def __init__(self, fn: Callable, sample: Callable, state,
                  tokens: torch.Tensor, key: Optional[tuple] = None):
@@ -243,6 +250,10 @@ class OffloadStage:
     rest of a row buffer is stale and is read only by padding entries.
     ``captures`` counts captures, ``replays`` replayed steps."""
 
+    # the SERVE_STAGES entries these pieces capture (rule RL103)
+    STAGES = ("embed_tokens", "rank_fn", "attend_fn", "unembed_logits",
+              "cache_upd", "cache_stage")
+
     def __init__(self, cfg, params, plan, attn_impl: str, caches, C: int, *,
                  sample: Callable, key: Optional[tuple] = None):
         self.cfg, self.params, self.plan = cfg, params, plan
@@ -325,7 +336,8 @@ class OffloadStage:
         flat = (q, est_logit, cs_e, vs_e, *cover)
         self.ctx = [self._keep(b, t)
                     for b, t in zip(self.ctx or [None] * len(flat), flat)]
-        self.h_ids.copy_(idx_r, non_blocking=True)
+        # the ids' copy into pinned memory, waited for by ``wait_ids``
+        self.h_ids.copy_(idx_r, non_blocking=True)  # retrolint: sync(async id copy)
 
     def cache_update(self, l: int) -> None:
         """Layer ``l``'s block-cache update from the staged (``load``)
@@ -382,8 +394,8 @@ class OffloadStage:
     def wait_ids(self) -> np.ndarray:
         """The (B, H, r) retrieved ids of the last piece's rank half."""
         if self.event is not None:
-            self.event.synchronize()
-        return self.h_ids.numpy()
+            self.event.synchronize()  # retrolint: sync(per-layer id readback)
+        return self.h_ids.numpy()  # retrolint: sync(the awaited ids)
 
     def _pad(self, ids: np.ndarray, rows: np.ndarray, src) -> int:
         """``src`` ((3, n) ids, (n, D) rows) or None into the (3, N) and
