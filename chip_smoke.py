@@ -1539,11 +1539,12 @@ def serve_offload(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
                   chunk=256, batch=2, device="cuda", seed=0,
                   min_capture_pos=4096):
     """Drive the offload path: ServeEngine(offload=True) with the config's
-    cache fraction and policy; every kernel's launch count is set to 0 just
-    before the serve and read just after (``LaunchTap``: the capture's
-    recorded calls added once per replayed step). Checks one capture of the
-    offload stage and a replay for every later step, launches, requests,
-    sizes and the control plane's counters."""
+    cache fraction and policy, recording spans; every kernel's launch count
+    is set to 0 just before the serve and read just after (``LaunchTap``:
+    the capture's recorded calls added once per replayed step). Checks one
+    capture of the offload stage and a replay for every later step,
+    launches, requests, sizes, one ``admit_slot`` span a request and the
+    control plane's counters."""
     import numpy as np
     import torch
     from repro_torch.core import attention
@@ -1559,7 +1560,7 @@ def serve_offload(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
     reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32), m)
             for n, m in zip(prompt_lens, new_tokens)]
     engine = ServeEngine(cfg, params, prefill_chunk=chunk, device=device,
-                         attn_impl=attn_impl, offload=True)
+                         attn_impl=attn_impl, offload=True, spans=True)
     cap = Capture(ops, attention, cfg.n_layers, cfg.layer_kinds(),
                   min_capture_pos)
     real_ops = attention.wa_ops
@@ -1621,8 +1622,9 @@ def serve_offload(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
                                      f"{int(st.length[slot])}, clusters "
                                      f"{int(st.n_clusters[slot])} / mirror "
                                      f"{plane.ncl[slot]} (want {want_cl})")
-    if len(plane.timing["admit_s"]) != len(reqs) or \
-            plane.retired.lookups == 0:
+    admit_slot_s = [s.seconds for s in m.spans.records
+                    if s.name == "admit_slot"]
+    if len(admit_slot_s) != len(reqs) or plane.retired.lookups == 0:
         raise AssertionError("a slot's buffers were not retired on reuse")
     c = m.cache
     if c.lookups == 0 or c.bytes_over_link == 0 or c.failed_fetches or \
@@ -1641,7 +1643,7 @@ def serve_offload(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
                host_store_gb=host_bytes / 1e9,
                device_cache_gb=cache_bytes / 1e9, peak_mem_gib=peak / 2**30,
                held_before_gib=held / 2**30,
-               admit_slot_s=plane.timing["admit_s"],
+               admit_slot_s=admit_slot_s,
                tokens_out=m.tokens_out, prefill_tps=m.prefill_tps,
                decode_s=m.decode_s, decode_tps=m.decode_tps,
                ttft_s=[r.ttft_s for r in reqs],
@@ -1726,7 +1728,7 @@ def plane_counters(plane):
     plane.export_stats(m)
     return dict(cache=dict(vars(m.cache)), degraded=m.degraded_steps,
                 dropped=m.dropped_cluster_steps,
-                h2d_bytes=plane.timing["h2d_bytes"])
+                h2d_bytes=plane.counts["h2d_bytes"])
 
 
 def offload_vs_direct(engine, max_ctx, steps=4):
@@ -1781,14 +1783,14 @@ def offload_vs_direct(engine, max_ctx, steps=4):
     return res, off
 
 
-OFFLOAD_TIMES = (("id_wait_ms", "sync_s"), ("translate_ms", "translate_s"),
-                 ("h2d_staging_ms", "stage_s"), ("launch_ms", "launch_s"),
-                 ("drain_ms", "drain_s"))
+OFFLOAD_TIMES = (("id_wait_ms", "readback_ids"), ("translate_ms", "translate"),
+                 ("h2d_staging_ms", "stage"), ("launch_ms", "launch"),
+                 ("drain_ms", "drain_admissions"))
 
 
 def offload_step_stats(plane, state, tokens, steps=8):
     """Where one offload decode step's time goes (both slots decoding):
-    host time until ``decode_step`` returns, split by ``plane.timing`` into
+    host time until ``decode_step`` returns, split by the plane's spans into
     the id waits, the translate, the staging of the pieces' inputs (pinned
     writes and copies to the device), the launch of the pieces (replays, or
     the eager enqueue) and the drain, the rest being glue; the synced wall;
@@ -1796,21 +1798,22 @@ def offload_step_stats(plane, state, tokens, steps=8):
     (busy share over the profiled wall)."""
     import numpy as np
     import torch
+    from repro_torch import spans
     active = np.ones(plane.B, bool)
-    tm = plane.timing
-    keys = [k for _, k in OFFLOAD_TIMES] + ["h2d_bytes"]
     for _ in range(2):
         plane.decode_step(state, tokens, active)
     torch.cuda.synchronize()
-    before = {k: tm[k] for k in keys}
+    h2d_before = plane.counts["h2d_bytes"]
     host, wall = [], []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        plane.decode_step(state, tokens, active)
-        host.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        wall.append(time.perf_counter() - t0)
-    per = {k: (tm[k] - before[k]) / steps for k in keys}
+    with spans.recording(plane.dev) as rec:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            plane.decode_step(state, tokens, active)
+            host.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+    per = {k: rec.seconds(k) / steps for _, k in OFFLOAD_TIMES}
+    per["h2d_bytes"] = (plane.counts["h2d_bytes"] - h2d_before) / steps
     rows, prof_wall = _profile_rows(
         lambda: plane.decode_step(state, tokens, active), steps)
     busy_s = sum(r[0] for r in rows) / 1e6

@@ -6,9 +6,13 @@ chunked or blocking admission. Port of ``repro/launch/serve.py``.
         --device cuda --requests 4 --batch 2 --prompt-lens 8192,6000 \
         --new-tokens 32 --stagger 8 [--runtime full] \
         [--admission blocking --prefill-bucket 64] [--offload --cache-frac 0.2] \
-        [--temperature 0.7 --seed 3]
+        [--temperature 0.7 --seed 3] [--trace]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_tiny \
         --device cpu --reduced --prompt-lens 60,40 --new-tokens 4
+
+``--trace`` serves with the engine's spans on (``repro_torch.spans``) and
+prints, for each span name, its count, seconds and self seconds, and with
+``--offload`` the plane's per-layer seconds.
 """
 from __future__ import annotations
 
@@ -21,6 +25,28 @@ from repro_torch import resolve_device
 from repro_torch.configs.registry import get_config, reduced_config
 from repro_torch.models import model as M
 from repro_torch.serving.engine import Request, ServeEngine
+
+# the offload plane's per-layer spans, in the order a layer runs them
+PLANE_SPANS = ("readback_ids", "translate", "stage", "launch",
+               "drain_admissions")
+
+
+def print_spans(rec) -> None:
+    """A call's spans by name (count, seconds, self seconds), longest
+    first; then the offload plane's spans by layer (seconds)."""
+    print(f"spans: {'name':18s} {'count':>7s} {'s':>10s} {'self s':>10s}")
+    for name, (n, sec, own) in sorted(rec.totals().items(),
+                                      key=lambda kv: -kv[1][1]):
+        print(f"       {name:18s} {n:7d} {sec:10.4f} {own:10.4f}")
+    by_layer = rec.totals(by="layer")
+    layers = sorted({lyr for name, lyr in by_layer if name in PLANE_SPANS})
+    if layers:
+        print("offload plane by layer, s: layer "
+              + " ".join(f"{n:>16s}" for n in PLANE_SPANS))
+        for lyr in layers:
+            print(f"{lyr:32d} " + " ".join(
+                f"{by_layer.get((n, lyr), (0, 0.0))[1]:16.4f}"
+                for n in PLANE_SPANS))
 
 
 def main(argv=None):
@@ -89,6 +115,9 @@ def main(argv=None):
                     help="sample at this temperature (Gumbel-max from a "
                          "generator seeded by --seed); 0: greedy")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", action="store_true",
+                    help="record the call's spans and print them by name "
+                         "(and the offload plane's by layer)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -107,7 +136,8 @@ def main(argv=None):
                          fetch_deadline_s=args.fetch_deadline,
                          fetch_retries=args.fetch_retries,
                          max_decode_steps=args.max_decode_steps,
-                         temperature=args.temperature, device=dev)
+                         temperature=args.temperature, spans=args.trace,
+                         device=dev)
     rng = np.random.default_rng(args.seed)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab, lens[i % len(lens)])
                     .astype(np.int32),
@@ -145,6 +175,8 @@ def main(argv=None):
               f"ttft {r.ttft_s:.2f}s, decode {r.decode_tps:.1f} tok/s"
               f"{status}")
     print("sample output tokens:", reqs[0].out_tokens[:10])
+    if args.trace:
+        print_spans(m.spans)
 
 
 if __name__ == "__main__":

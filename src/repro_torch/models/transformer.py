@@ -26,6 +26,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as wa
 from repro_torch.core.distributed import distributed_wave_attention
@@ -197,7 +198,9 @@ def prefill(params, cfg: ModelConfig, tokens, patch_embeds=None, *,
     ``cfg.sparse_prefill_blocks > 0`` (and T a multiple of 128) runs
     block-sparse attention instead of the dense flash attention.
     ``patch_embeds``: (B, P, D) vlm patch embeddings of the first P
-    positions."""
+    positions. Each layer is a device span (``repro_torch.spans``),
+    ``prefill.layer``, with children ``prefill.attn`` (the attention) and
+    ``prefill.index`` (``build_kv``)."""
     a, retro = cfg.attn, cfg.retro
     x = embed_tokens(params, cfg, tokens, patch_embeds)
     B, T, _ = x.shape
@@ -210,22 +213,28 @@ def prefill(params, cfg: ModelConfig, tokens, patch_embeds=None, *,
     total = cache_len if cache_len is not None else T + gen_headroom
     use_sparse = cfg.sparse_prefill_blocks > 0 and T % 128 == 0
     kv = []
-    for lp, window in zip(params["layers"], params["window"]):
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = L.attention_qkv(lp["attn"], h, a.n_heads, a.n_kv_heads,
-                                  a.head_dim, positions, a.rope_theta)
-        if use_sparse:
-            o = block_sparse_attention(q, k, v, block=128,
-                                       topk_blocks=cfg.sparse_prefill_blocks,
-                                       window=window, softcap=a.softcap)
-        else:
-            o = L.flash_attention_jnp(q, k, v, causal=True, window=window,
-                                      softcap=a.softcap)
-        x = x + o.reshape(B, T, -1) @ lp["attn"]["wo"]
-        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _ffn(lp, h, cfg)[0]
-        kv.append(build_kv(cfg, k, v, runtime=runtime, plan=plan,
-                           total=total, lengths=lens))
+    for i, (lp, window) in enumerate(zip(params["layers"], params["window"])):
+        with spans.device("prefill.layer", layer=i):
+            h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = L.attention_qkv(lp["attn"], h, a.n_heads,
+                                      a.n_kv_heads, a.head_dim, positions,
+                                      a.rope_theta)
+            with spans.device("prefill.attn", layer=i):
+                if use_sparse:
+                    o = block_sparse_attention(
+                        q, k, v, block=128,
+                        topk_blocks=cfg.sparse_prefill_blocks,
+                        window=window, softcap=a.softcap)
+                else:
+                    o = L.flash_attention_jnp(q, k, v, causal=True,
+                                              window=window,
+                                              softcap=a.softcap)
+            x = x + o.reshape(B, T, -1) @ lp["attn"]["wo"]
+            h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + _ffn(lp, h, cfg)[0]
+            with spans.device("prefill.index", layer=i):
+                kv.append(build_kv(cfg, k, v, runtime=runtime, plan=plan,
+                                   total=total, lengths=lens))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if lens is None:
         last = x[:, -1]

@@ -40,6 +40,7 @@ plane), between the replays of the layer pieces. See ``_OffloadPlane``.
 """
 from __future__ import annotations
 
+import functools
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -48,7 +49,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import resolve_attn_impl
 from repro_torch.core.wave_buffer import (BufferStats, FatalTransportError,
@@ -93,7 +94,6 @@ class ServeMetrics:
     occupied_slot_steps: int = 0
     n_slots: int = 0
     ttft_s: List[float] = field(default_factory=list)
-    request_tps: List[float] = field(default_factory=list)
     # gaps between consecutive token deliveries of continuing requests
     step_s: List[float] = field(default_factory=list)
     # host-offload wave-buffer counters, summed over every per-row buffer
@@ -103,6 +103,8 @@ class ServeMetrics:
     # zone (its fetch failed), and the cluster-step drop count
     degraded_steps: int = 0
     dropped_cluster_steps: int = 0
+    # the call's spans (``repro_torch.spans``) when the engine records them
+    spans: Optional[spans.Spans] = None
 
     @property
     def decode_tps(self) -> float:
@@ -174,14 +176,6 @@ class ServeMetrics:
     @property
     def itl_p99_s(self) -> float:
         return float(np.percentile(self.step_s, 99)) if self.step_s else 0.0
-
-    @property
-    def ttft_p50_s(self) -> float:
-        return float(np.percentile(self.ttft_s, 50)) if self.ttft_s else 0.0
-
-    @property
-    def ttft_p99_s(self) -> float:
-        return float(np.percentile(self.ttft_s, 99)) if self.ttft_s else 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -365,6 +359,7 @@ class _Admission:
     """One slot's admission: a chunked one in progress, or a finished
     blocking prefill (its logits)."""
     req: Request
+    rid: int                            # the request's index in the queue
     cstate: Any = None                  # PrefillChunkState
     consumed: int = 0
     logits: Any = None                  # device logits of the last chunk
@@ -464,10 +459,13 @@ class _OffloadPlane:
     restage. Every layer attends with the mask and the retrieval cover, as
     the reference does, so a row's logits never depend on another row's
     faults. Every dispatch / host op / sync calls ``trace`` (a no-op), in
-    the reference's program order. ``timing`` sums the host's time per
-    piece: the id waits, the translate, the staging of the next piece's
-    inputs (``stage_s``), the launch of the pieces (``launch_s``: replays,
-    or the eager enqueue) and the drain.
+    the reference's program order. The host's time per piece is in spans
+    (``repro_torch.spans``, while a recorder is active): ``decode_step``
+    and per layer ``readback_ids`` (the id wait), ``translate``, ``stage``
+    (the next piece's inputs), ``launch`` (a replay, or the eager enqueue;
+    piece 0 at layer -1) and ``drain_admissions``; ``admit_slot``;
+    ``offload_flush`` and ``host_flush``. ``counts`` holds the steps and the
+    bytes copied to the device.
     """
 
     def trace(self, op: str, layer: int, kind: str, step: int,
@@ -515,9 +513,7 @@ class _OffloadPlane:
         self.degraded_steps = 0             # steps with >= 1 masked cluster
         self.dropped_cluster_steps = 0      # cluster-step masked count
         self.failed_slots: Dict[int, str] = {}   # slot -> fatal fault message
-        self.timing = dict(steps=0, sync_s=0.0, translate_s=0.0,
-                           stage_s=0.0, launch_s=0.0, drain_s=0.0,
-                           h2d_bytes=0, admit_s=[])
+        self.counts = dict(steps=0, h2d_bytes=0)
         self.cfg = cfg
         self._flush = M.offload_decode_fns(cfg)[-1]
         self.stage = OffloadStage(
@@ -527,8 +523,8 @@ class _OffloadPlane:
             key=(B, max_ctx, C, r, engine.attn_impl))
 
     def _h2d(self, a: np.ndarray) -> torch.Tensor:
-        """Host array -> device, counted in ``timing["h2d_bytes"]``."""
-        self.timing["h2d_bytes"] += a.nbytes
+        """Host array -> device, counted in ``counts["h2d_bytes"]``."""
+        self.counts["h2d_bytes"] += a.nbytes
         return to_device(a, self.dev)
 
     # ----------------------------------------------------------- admission
@@ -539,29 +535,28 @@ class _OffloadPlane:
         die with it; its stats are retired into the engine aggregate)."""
         self._step += 1
         self.trace("admit_slot", -1, "host", self._step)
-        t0 = time.perf_counter()
-        self.ncl[i] = int(st1.kv[0].n_clusters[0])  # retrolint: sync(cluster-count mirror)
-        for l in range(self.L):
-            st = st1.kv[l]
-            host = _pack(  # retrolint: sync(store offload)
-                st.k_store[0], st.v_store[0], st.pos_store[0]) \
-                .cpu().numpy()                                  # (H, M, D)
-            old = self.bufs[l][i]
-            if old is not None:
-                for buf in old:
-                    self.retired.merge(buf.stats)
-            self.bufs[l][i] = [
-                WaveBuffer(host[h], cache_clusters=self.C,
-                           policy=self.policy, transport=self.transport,
-                           max_retries=self.fetch_retries,
-                           backoff_s=self.fetch_backoff_s)
-                for h in range(self.H)]
-            # drop queued admissions aimed at the replaced slot's caches
-            if self.pending_adm[l] is not None:
-                ids, rows = self.pending_adm[l]
-                keep = ids[0] != i
-                self.pending_adm[l] = (ids[:, keep], rows[keep])
-        self.timing["admit_s"].append(time.perf_counter() - t0)
+        with spans.host("admit_slot", slot=i):
+            self.ncl[i] = int(st1.kv[0].n_clusters[0])  # retrolint: sync(cluster-count mirror)
+            for l in range(self.L):
+                st = st1.kv[l]
+                host = _pack(  # retrolint: sync(store offload)
+                    st.k_store[0], st.v_store[0], st.pos_store[0]) \
+                    .cpu().numpy()                              # (H, M, D)
+                old = self.bufs[l][i]
+                if old is not None:
+                    for buf in old:
+                        self.retired.merge(buf.stats)
+                self.bufs[l][i] = [
+                    WaveBuffer(host[h], cache_clusters=self.C,
+                               policy=self.policy, transport=self.transport,
+                               max_retries=self.fetch_retries,
+                               backoff_s=self.fetch_backoff_s)
+                    for h in range(self.H)]
+                # drop queued admissions aimed at the replaced slot's caches
+                if self.pending_adm[l] is not None:
+                    ids, rows = self.pending_adm[l]
+                    keep = ids[0] != i
+                    self.pending_adm[l] = (ids[:, keep], rows[keep])
 
     # ------------------------------------------------------- control plane
     def _translate(self, l, ids, active):
@@ -653,50 +648,45 @@ class _OffloadPlane:
         stage's static buffer, which the next step overwrites."""
         self._step += 1
         t = self._step
-        tm = self.timing
-        tm["steps"] += 1
+        cn = self.counts
+        cn["steps"] += 1
         drops_before = self.dropped_cluster_steps
         st = self.stage
-        st.bind(state, tokens_dev)
-        t0 = time.perf_counter()
-        tm["h2d_bytes"] += st.set_active(active)
-        self.trace("embed_tokens", -1, "dispatch", t)
-        self.trace("rank_fn", 0, "dispatch", t)
-        st.run(0)
-        self.trace("readback_start", 0, "host", t)
-        tm["launch_s"] += time.perf_counter() - t0
-        for l in range(self.L):
-            # the paper's CPU control plane needs the retrieved ids on the
-            # host; their copy was enqueued with the rank
-            self.trace("readback_ids", l, "sync", t)
-            t0 = time.perf_counter()
-            ids = st.wait_ids()
-            t1 = time.perf_counter()
-            self.trace("translate", l, "host", t)
-            sv, miss = self._translate(l, ids, active)
-            t2 = time.perf_counter()
-            # the previous step's admissions (if any) mirror into [0, C),
-            # this step's misses into the staging tail
-            self.trace("cache_stage" if self.pending_adm[l] is None
-                       else "cache_upd", l, "dispatch", t)
-            tm["h2d_bytes"] += st.load(sv, self.pending_adm[l], miss)
-            t3 = time.perf_counter()
-            self.trace("attend_fn", l, "dispatch", t)
-            last = l + 1 == self.L
-            if not last:        # pipeline: next rank before this drain
-                self.trace("rank_fn", l + 1, "dispatch", t)
-            st.run(l + 1)
-            if not last:
-                self.trace("readback_start", l + 1, "host", t)
-            t4 = time.perf_counter()
-            queued = self._drain_admissions(l, active)   # off the hot path
-            t5 = time.perf_counter()
-            self.trace("drain_admissions", l, "host", t, queued=queued)
-            tm["sync_s"] += t1 - t0
-            tm["translate_s"] += t2 - t1
-            tm["stage_s"] += t3 - t2
-            tm["launch_s"] += t4 - t3
-            tm["drain_s"] += t5 - t4
+        with spans.host("decode_step", step=t):
+            st.bind(state, tokens_dev)
+            with spans.host("launch", layer=-1):
+                cn["h2d_bytes"] += st.set_active(active)
+                self.trace("embed_tokens", -1, "dispatch", t)
+                self.trace("rank_fn", 0, "dispatch", t)
+                st.run(0)
+                self.trace("readback_start", 0, "host", t)
+            for l in range(self.L):
+                # the paper's CPU control plane needs the retrieved ids on
+                # the host; their copy was enqueued with the rank
+                self.trace("readback_ids", l, "sync", t)
+                with spans.host("readback_ids", layer=l):
+                    ids = st.wait_ids()
+                self.trace("translate", l, "host", t)
+                with spans.host("translate", layer=l):
+                    sv, miss = self._translate(l, ids, active)
+                # the previous step's admissions (if any) mirror into
+                # [0, C), this step's misses into the staging tail
+                self.trace("cache_stage" if self.pending_adm[l] is None
+                           else "cache_upd", l, "dispatch", t)
+                with spans.host("stage", layer=l):
+                    cn["h2d_bytes"] += st.load(sv, self.pending_adm[l], miss)
+                self.trace("attend_fn", l, "dispatch", t)
+                last = l + 1 == self.L
+                if not last:        # pipeline: next rank before this drain
+                    self.trace("rank_fn", l + 1, "dispatch", t)
+                with spans.host("launch", layer=l):
+                    st.run(l + 1)
+                if not last:
+                    self.trace("readback_start", l + 1, "host", t)
+                # off the hot path
+                with spans.host("drain_admissions", layer=l):
+                    queued = self._drain_admissions(l, active)
+                self.trace("drain_admissions", l, "host", t, queued=queued)
         # (run with the last layer's piece)
         self.trace("unembed_logits", -1, "dispatch", t)
         if self.dropped_cluster_steps > drops_before:
@@ -712,23 +702,25 @@ class _OffloadPlane:
         kv = state.kv
         lives = [{f: getattr(st, f) for f in LIVE_FIELDS} for st in kv]
         self.trace("offload_flush", -1, "dispatch", self._step)
-        new_lives, res = self._flush(self.cfg, lives, self._h2d(rows))
         flushed = np.where(rows)[0]
-        sel = self._h2d(flushed)
-        self.trace("readback_flush", -1, "sync", self._step)
-        blocks = torch.stack(  # retrolint: sync(flush blocks)
-            [_pack(c.k_store, c.v_store, c.pos_store)[sel] for c in res]) \
-            .cpu().numpy()
+        with spans.host("offload_flush", rows=len(flushed)):
+            new_lives, res = self._flush(self.cfg, lives, self._h2d(rows))
+            sel = self._h2d(flushed)
+            self.trace("readback_flush", -1, "sync", self._step)
+            blocks = torch.stack(  # retrolint: sync(flush blocks)
+                [_pack(c.k_store, c.v_store, c.pos_store)[sel]
+                 for c in res]).cpu().numpy()
         self.trace("host_flush", -1, "host", self._step)
         k_new = blocks.shape[3]                   # (L, rows, H, k_new, D)
-        for j, b in enumerate(flushed):
-            off = int(self.ncl[b])
-            for l in range(self.L):
-                if self.bufs[l][b] is None:
-                    continue
-                for h in range(self.H):
-                    self.bufs[l][b][h].store_rows(off, blocks[l, j, h])
-            self.ncl[b] += k_new
+        with spans.host("host_flush", rows=len(flushed)):
+            for j, b in enumerate(flushed):
+                off = int(self.ncl[b])
+                for l in range(self.L):
+                    if self.bufs[l][b] is None:
+                        continue
+                    for h in range(self.H):
+                        self.bufs[l][b][h].store_rows(off, blocks[l, j, h])
+                self.ncl[b] += k_new
         return ServeState(kv=[st._replace(**nl)
                               for st, nl in zip(kv, new_lives)])
 
@@ -773,6 +765,20 @@ class Sampler:
             .to(torch.int32)
 
 
+def _recorded(serve):
+    """``serve`` inside a span recorder when the engine records spans; the
+    records go into the returned metrics' ``spans``."""
+    @functools.wraps(serve)
+    def run(self, *args, **kwargs):
+        if not self.spans:
+            return serve(self, *args, **kwargs)
+        with spans.recording(self.device) as rec:
+            metrics = serve(self, *args, **kwargs)
+        metrics.spans = rec
+        return metrics
+    return run
+
+
 class ServeEngine:
     """``serve(requests, batch_size)`` — continuous scheduler over a slot
     batch. ``runtime``: "retro" (the wave index) or "full" (dense cache).
@@ -790,8 +796,9 @@ class ServeEngine:
     as "transient=0.2,seed=3"), ``fetch_deadline_s``, ``fetch_retries`` and
     ``fetch_backoff_s`` shape its miss fetches. ``temperature`` > 0
     samples every token (``Sampler``, seeded by ``serve(seed=...)``); 0,
-    the default, is greedy. ``device`` defaults to ``cuda`` and raises
-    when there is no card."""
+    the default, is greedy. ``spans`` records each call's spans
+    (``repro_torch.spans``) into its ``ServeMetrics.spans``. ``device``
+    defaults to ``cuda`` and raises when there is no card."""
 
     def __init__(self, cfg: ModelConfig, params, *, runtime: str = "retro",
                  gen_headroom: int = 1024, temperature: float = 0.0,
@@ -805,7 +812,8 @@ class ServeEngine:
                  fault_profile: Optional[Any] = None,
                  fetch_deadline_s: Optional[float] = None,
                  fetch_retries: int = 2, fetch_backoff_s: float = 1e-3,
-                 max_decode_steps: Optional[int] = None, device=None):
+                 max_decode_steps: Optional[int] = None, spans: bool = False,
+                 device=None):
         if admission not in ("chunked", "blocking"):
             raise ValueError(f"unknown admission mode {admission!r}")
         self.device = resolve_device(device)
@@ -839,6 +847,7 @@ class ServeEngine:
         self.fetch_deadline_s = fetch_deadline_s
         self.fetch_retries = fetch_retries
         self.fetch_backoff_s = fetch_backoff_s
+        self.spans = spans
 
     def _bucket(self, L: int) -> int:
         """Blocking admission's prefill length for an L-token prompt: L
@@ -872,6 +881,7 @@ class ServeEngine:
                                   plan=plan, active=active, attn_impl=impl)
         return fn
 
+    @_recorded
     @torch.inference_mode()
     def serve(self, requests: List[Request], batch_size: int,
               seed: int = 0) -> ServeMetrics:
@@ -908,7 +918,7 @@ class ServeEngine:
         use_flush = rt == "retro" and cfg.family != "ssm"
         plane = _OffloadPlane(self, B, max_ctx) if self.offload else None
 
-        queue = deque(requests)
+        queue = deque(enumerate(requests))      # (rid, request)
         slots: List[Optional[Request]] = [None] * B
         admitting: List[Optional[_Admission]] = [None] * B
         active = np.zeros(B, bool)
@@ -937,11 +947,12 @@ class ServeEngine:
             dt = time.perf_counter() - admit_t[i]
             n_decode = len(req.out_tokens) - 1   # first token is prefill's
             req.decode_tps = n_decode / dt if dt > 0 and n_decode > 0 else 0.0
-            if n_decode > 0:
-                metrics.request_tps.append(req.decode_tps)
             slots[i] = None
             active[i] = False
 
+        # Spans (``repro_torch.spans``) cover the whole scheduler iteration:
+        # admit (per request: prefill / chunk + fin, graft, admit_slot),
+        # first_token, decode, harvest and flush.
         while queue or active.any() or any(a is not None for a in admitting) \
                 or prev is not None:
             # ---- admission: one prefill chunk per admitting slot ----------
@@ -951,92 +962,103 @@ class ServeEngine:
                 if not chunked:
                     if active[i] or slots[i] is not None or not queue:
                         continue
-                    req = queue.popleft()
+                    rid, req = queue.popleft()
                     L = len(req.prompt)
-                    S_b = min(self._bucket(L), max_ctx)
-                    toks = np.zeros((1, S_b), np.int32)
-                    toks[0, :L] = req.prompt
-                    batch = {"tokens": to_device(toks, dev),
-                             **_extras(req, dev)}
-                    # recurrent prefills take no ragged lengths (and
-                    # _bucket never pads them)
-                    lengths = to_device(np.array([L], np.int32), dev) \
-                        if cfg.family in M.ATTN_FAMILIES else None
-                    logits, st1 = M.apply_prefill(
-                        self.params, cfg, batch,
-                        runtime=rt, plan=plan, gen_headroom=self.gen_headroom,
-                        lengths=lengths,
-                        cache_len=max_ctx + self.gen_headroom)
-                    metrics.prefill_tokens += L
-                    state = graft(state, st1, i)
-                    if plane is not None:       # device->host store offload
-                        plane.admit_slot(i, st1)
-                    completed.append((i, _Admission(req=req, logits=logits,
-                                                    consumed=L)))
+                    with spans.host("admit", rid=rid, slot=i, tokens=L):
+                        S_b = min(self._bucket(L), max_ctx)
+                        toks = np.zeros((1, S_b), np.int32)
+                        toks[0, :L] = req.prompt
+                        batch = {"tokens": to_device(toks, dev),
+                                 **_extras(req, dev)}
+                        # recurrent prefills take no ragged lengths (and
+                        # _bucket never pads them)
+                        lengths = to_device(np.array([L], np.int32), dev) \
+                            if cfg.family in M.ATTN_FAMILIES else None
+                        with spans.host("prefill"):
+                            logits, st1 = M.apply_prefill(
+                                self.params, cfg, batch, runtime=rt,
+                                plan=plan, gen_headroom=self.gen_headroom,
+                                lengths=lengths,
+                                cache_len=max_ctx + self.gen_headroom)
+                        metrics.prefill_tokens += L
+                        with spans.host("graft"):
+                            state = graft(state, st1, i)
+                        if plane is not None:   # device->host store offload
+                            plane.admit_slot(i, st1)
+                        completed.append((i, _Admission(
+                            req=req, rid=rid, logits=logits, consumed=L)))
                     continue
                 if admitting[i] is None and not active[i] \
                         and slots[i] is None and queue:
-                    req = queue.popleft()
-                    admitting[i] = _Admission(
-                        req=req, extra=_extras(req, dev),
-                        cstate=M.make_prefill_chunk_state(
-                            cfg, 1, max_ctx, runtime=rt,
-                            chunk=self.prefill_chunk,
-                            gen_headroom=self.gen_headroom, device=dev))
+                    rid, req = queue.popleft()
+                    admitting[i] = _Admission(req=req, rid=rid)
                 adm = admitting[i]
                 if adm is None:
                     continue
                 L, C = len(adm.req.prompt), self.prefill_chunk
                 n = min(C, L - adm.consumed)
-                toks = np.zeros((1, C), np.int32)
-                toks[0, :n] = adm.req.prompt[adm.consumed:adm.consumed + n]
-                adm.logits, adm.cstate = M.apply_prefill_chunk(
-                    self.params, cfg,
-                    {"tokens": to_device(toks, dev), **adm.extra},
-                    adm.cstate, runtime=rt,
-                    chunk_lens=to_device(np.array([n], np.int32), dev))
-                adm.consumed += n
-                metrics.prefill_tokens += n
-                if adm.consumed >= L:
-                    st1 = M.finalize_prefill_chunk(cfg, adm.cstate,
-                                                   runtime=rt, total_len=L)
-                    state = graft(state, st1, i)
-                    if plane is not None:       # device->host store offload
-                        plane.admit_slot(i, st1)
-                    adm.cstate = None
-                    admitting[i] = None
-                    completed.append((i, adm))
+                with spans.host("admit", rid=adm.rid, slot=i, tokens=n):
+                    if adm.cstate is None:          # the request's first chunk
+                        adm.extra = _extras(adm.req, dev)
+                        adm.cstate = M.make_prefill_chunk_state(
+                            cfg, 1, max_ctx, runtime=rt,
+                            chunk=self.prefill_chunk,
+                            gen_headroom=self.gen_headroom, device=dev)
+                    toks = np.zeros((1, C), np.int32)
+                    toks[0, :n] = adm.req.prompt[adm.consumed:adm.consumed + n]
+                    with spans.host("chunk"):
+                        adm.logits, adm.cstate = M.apply_prefill_chunk(
+                            self.params, cfg,
+                            {"tokens": to_device(toks, dev), **adm.extra},
+                            adm.cstate, runtime=rt,
+                            chunk_lens=to_device(np.array([n], np.int32),
+                                                 dev))
+                    adm.consumed += n
+                    metrics.prefill_tokens += n
+                    if adm.consumed >= L:
+                        with spans.host("fin"):
+                            st1 = M.finalize_prefill_chunk(
+                                cfg, adm.cstate, runtime=rt, total_len=L)
+                        with spans.host("graft"):
+                            state = graft(state, st1, i)
+                        if plane is not None:   # device->host store offload
+                            plane.admit_slot(i, st1)
+                        adm.cstate = None
+                        admitting[i] = None
+                        completed.append((i, adm))
 
             if completed:
-                # coalesced first-token sampling: ONE host sync for every
-                # request admitted this iteration
-                stacked = torch.cat([a.logits for _, a in completed], 0)
-                first = self._sample_dev(stacked)
-                first = first.cpu().numpy()  # retrolint: sync(coalesced first tokens)
-                now = time.perf_counter()
-                upd = np.zeros(B, np.int32)
-                mask = np.zeros(B, bool)
-                for (i, adm), tok in zip(completed, first):
-                    req = adm.req
-                    req.ttft_s = now - t_start
-                    req.out_tokens.append(int(tok))
-                    metrics.tokens_out += 1
-                    metrics.ttft_s.append(req.ttft_s)
-                    admit_t[i] = now
-                    slots[i] = req
-                    req.slot = i
-                    active[i] = True
-                    slot_steps[i] = 0
-                    upd[i], mask[i] = tok, True
-                    # device local_len after admission: both admissions give
-                    # ``local`` (``_bucket`` pads only prompts of at least
-                    # sink + local tokens)
-                    staged[i] = min(cfg.retro.local,
-                                    max(adm.consumed - cfg.retro.sink, 0))
-                    if len(req.out_tokens) >= req.max_new_tokens:
-                        finish(i, req)
-                merge_tokens(tokens_dev, to_device(upd, dev),
-                             to_device(mask, dev))
+                with spans.host("first_token", requests=len(completed)):
+                    # coalesced first-token sampling: ONE host sync for
+                    # every request admitted this iteration
+                    stacked = torch.cat([a.logits for _, a in completed], 0)
+                    first = self._sample_dev(stacked)
+                    first = first.cpu().numpy()  # retrolint: sync(coalesced first tokens)
+                    spans.resolve()     # the admissions' device spans
+                    now = time.perf_counter()
+                    upd = np.zeros(B, np.int32)
+                    mask = np.zeros(B, bool)
+                    for (i, adm), tok in zip(completed, first):
+                        req = adm.req
+                        req.ttft_s = now - t_start
+                        req.out_tokens.append(int(tok))
+                        metrics.tokens_out += 1
+                        metrics.ttft_s.append(req.ttft_s)
+                        admit_t[i] = now
+                        slots[i] = req
+                        req.slot = i
+                        active[i] = True
+                        slot_steps[i] = 0
+                        upd[i], mask[i] = tok, True
+                        # device local_len after admission: both admissions
+                        # give ``local`` (``_bucket`` pads only prompts of
+                        # at least sink + local tokens)
+                        staged[i] = min(cfg.retro.local,
+                                        max(adm.consumed - cfg.retro.sink, 0))
+                        if len(req.out_tokens) >= req.max_new_tokens:
+                            finish(i, req)
+                    merge_tokens(tokens_dev, to_device(upd, dev),
+                                 to_device(mask, dev))
             metrics.prefill_s += time.perf_counter() - t0
 
             # ---- one decode step over the whole slot batch -----------------
@@ -1044,51 +1066,57 @@ class ServeEngine:
             t0 = time.perf_counter()
             cur = None
             if active.any():
-                # the ids (a static output; the step also writes them into
-                # tokens_dev) are copied to the host on this stream after
-                # this step and before the next one overwrites them: stream
-                # order keeps it safe
-                if plane is not None:
-                    plane.decode_step(state, tokens_dev, active)
-                    new_sampled = graph.ids
-                    graph.capture_pieces()      # after the first step
-                else:
-                    _, new_sampled = graph.step(active, state)
-                cur = _Readback(new_sampled, h_ids[metrics.steps % 2])
-                snapshot = [slots[i] if active[i] else None for i in range(B)]
-                metrics.steps += 1
-                metrics.occupied_slot_steps += int(active.sum())
-                staged[active] += 1
-                slot_steps[active] += 1
-                # unrecoverable link fault: finish only the affected requests
-                # (their in-flight token is dropped by the lagged harvest)
-                if plane is not None and plane.failed_slots:
-                    for i in sorted(plane.failed_slots):
-                        if slots[i] is not None:
-                            finish(i, slots[i], status="error")
-                    plane.failed_slots.clear()
-                if self.max_decode_steps is not None:
-                    for i in range(B):
-                        if active[i] and slot_steps[i] >= self.max_decode_steps:
-                            finish(i, slots[i], status="timeout")
+                with spans.host("decode", step=metrics.steps):
+                    # the ids (a static output; the step also writes them
+                    # into tokens_dev) are copied to the host on this stream
+                    # after this step and before the next one overwrites
+                    # them: stream order keeps it safe
+                    if plane is not None:
+                        plane.decode_step(state, tokens_dev, active)
+                        new_sampled = graph.ids
+                        graph.capture_pieces()      # after the first step
+                    else:
+                        _, new_sampled = graph.step(active, state)
+                    cur = _Readback(new_sampled, h_ids[metrics.steps % 2])
+                    snapshot = [slots[i] if active[i] else None
+                                for i in range(B)]
+                    metrics.steps += 1
+                    metrics.occupied_slot_steps += int(active.sum())
+                    staged[active] += 1
+                    slot_steps[active] += 1
+                    # unrecoverable link fault: finish only the affected
+                    # requests (their in-flight token is dropped by the
+                    # lagged harvest)
+                    if plane is not None and plane.failed_slots:
+                        for i in sorted(plane.failed_slots):
+                            if slots[i] is not None:
+                                finish(i, slots[i], status="error")
+                        plane.failed_slots.clear()
+                    if self.max_decode_steps is not None:
+                        for i in range(B):
+                            if active[i] and \
+                                    slot_steps[i] >= self.max_decode_steps:
+                                finish(i, slots[i], status="timeout")
 
             # ---- harvest step t's ids (one step lagged) --------------------
             if prev is not None:
-                ids = prev.get()            # the decode loop's only sync
-                now = time.perf_counter()
-                delivered = set()
-                for i, req in enumerate(prev_snapshot):
-                    if req is None or slots[i] is not req or req.done:
-                        continue        # freed/re-admitted: speculative token
-                    delivered.add(id(req))
-                    req.out_tokens.append(int(ids[i]))
-                    metrics.tokens_out += 1
-                    if len(req.out_tokens) >= req.max_new_tokens:
-                        finish(i, req)
-                if delivered:
-                    if last_deliver_t is not None and (delivered & last_deliver):
-                        metrics.step_s.append(now - last_deliver_t)
-                    last_deliver_t, last_deliver = now, delivered
+                with spans.host("harvest"):
+                    ids = prev.get()            # the decode loop's only sync
+                    now = time.perf_counter()
+                    delivered = set()
+                    for i, req in enumerate(prev_snapshot):
+                        if req is None or slots[i] is not req or req.done:
+                            continue    # freed/re-admitted: speculative token
+                        delivered.add(id(req))
+                        req.out_tokens.append(int(ids[i]))
+                        metrics.tokens_out += 1
+                        if len(req.out_tokens) >= req.max_new_tokens:
+                            finish(i, req)
+                    if delivered:
+                        if last_deliver_t is not None \
+                                and (delivered & last_deliver):
+                            metrics.step_s.append(now - last_deliver_t)
+                        last_deliver_t, last_deliver = now, delivered
             if cur is not None:
                 prev, prev_snapshot = cur, snapshot
             else:
@@ -1098,10 +1126,11 @@ class ServeEngine:
             # ---- per-row masked index update (off the per-step hot path) ---
             if use_flush and (staged >= lbuf).any():
                 rows = staged >= lbuf
-                if plane is not None:
-                    state = plane.flush(state, rows)
-                else:
-                    state = M.flush_state(cfg, state)
+                with spans.host("flush", rows=int(rows.sum())):
+                    if plane is not None:
+                        state = plane.flush(state, rows)
+                    else:
+                        state = M.flush_state(cfg, state)
                 metrics.flushes += 1
                 staged[rows] -= cfg.retro.update_segment
         if plane is not None:

@@ -41,6 +41,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.models import model as M
 from repro_torch.models.transformer import LIVE_FIELDS
 
@@ -119,7 +120,8 @@ class DecodeGraph:
         # a pinned source: a pageable copy would wait for the queued work
         self.active.copy_(host.pin_memory(), non_blocking=True)
         if self.graph is None:
-            return self._warm_up_and_capture()
+            with spans.host("capture"):
+                return self._warm_up_and_capture()
         self.graph.replay()
         self.replays += 1
         return self.logits, self.ids
@@ -439,14 +441,16 @@ class OffloadStage:
         if self.graphs is not None or self.active.device.type != "cuda":
             return
         dev = self.active.device
-        torch.cuda.synchronize(dev)
-        stream, pool = torch.cuda.Stream(dev), torch.cuda.graph_pool_handle()
-        graphs = []
-        for k in range(self.L + 1):        # the last piece samples
-            graph, _ = capture(stream, lambda: self._piece(k), pool,
-                               generators(self.sample) if k == self.L
-                               else ())
-            graphs.append(graph)
+        with spans.host("capture"):
+            torch.cuda.synchronize(dev)
+            stream = torch.cuda.Stream(dev)
+            pool = torch.cuda.graph_pool_handle()
+            graphs = []
+            for k in range(self.L + 1):        # the last piece samples
+                graph, _ = capture(stream, lambda: self._piece(k), pool,
+                                   generators(self.sample) if k == self.L
+                                   else ())
+                graphs.append(graph)
         self.graphs = graphs
         self._captured = self.addresses()
         self.captures += 1

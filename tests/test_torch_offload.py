@@ -238,7 +238,7 @@ def test_offload_decode_bit_identical_to_direct(models, impl):
     _, _, cfg, params = models
     direct, off, plane = _offload_vs_direct(cfg, params, impl, "cpu")
     torch.testing.assert_close(off, direct, **TOL)
-    assert plane.timing["steps"] == 7 and plane.degraded_steps == 0
+    assert plane.counts["steps"] == 7 and plane.degraded_steps == 0
     stats = [b.stats for row in plane.bufs for bufs in row for b in bufs]
     assert sum(s.lookups for s in stats) > 0
 

@@ -264,7 +264,7 @@ def _counters(plane):
     m = ServeMetrics()
     plane.export_stats(m)
     return (vars(m.cache), m.degraded_steps, m.dropped_cluster_steps,
-            plane.timing["h2d_bytes"], plane.timing["steps"])
+            plane.counts["h2d_bytes"], plane.counts["steps"])
 
 
 @pytest.mark.cuda
