@@ -17,6 +17,10 @@
    G 4, hd 256, window 512), mixtral-8x22b (G 6, hd 128, window 4096),
    llava-next-34b (G 7, hd 128) and kimi-k2 (G 8, hd 128), the last three
    timed, with their bounds and device durations;
+2d. holds the prefill attention kernel (blocking admission's causal
+   attention) against its twin at mistral-7b's (T 16384, G 4) and
+   mixtral-8x22b's (T 4096, G 6) admission shapes and times it beside the
+   twin, ``scaled_dot_product_attention`` and its bound;
 3. serves full-width gemma2-2b (bf16, random weights from a seed) through
    ``ServeEngine(attn_impl="fused")`` — chunked admission, the wave index,
    decode through the paged kernel and a decode-time flush — and checks the
@@ -577,6 +581,53 @@ def kmeans_case(S=8, n=8192, d=256, k=512, iters=10, seed=0,
         f"{res['plain_loop_ms']:.3f} ms against the op's loop "
         f"{res['op_loop_ms']:.3f} ms; final assignments agree on "
         f"{res['plain_loop_agree']:.4f} of the points")
+    return res
+
+
+def prefill_attention_case(name, T, Hq, Hkv, seed=0, device="cuda"):
+    """The prefill attention kernel at one admission shape (B 1, T tokens,
+    hd 128, bf16, causal): against its plain twin in f32 out (the card
+    tests' tolerance), then timed beside the twin, the library's
+    ``scaled_dot_product_attention`` (bf16, causal, K/V repeated to Hq
+    heads outside the timing) and the bound: the causal work, 4 d Hq flops
+    a (query, key) pair, at the bf16 tensor-core peak, and the same with
+    p v counted three times (the split the kernel computes)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.prefill_attention import ops as pops
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device).bfloat16()
+    q, k, v = randn(1, T, Hq, 128), randn(1, T, Hkv, 128), randn(1, T, Hkv,
+                                                                   128)
+    out = pops.prefill_attention(q, k, v, out_dtype=torch.float32)
+    ref = pops.prefill_attention_plain(q, k, v, out_dtype=torch.float32)
+    err = (out - ref).abs().max().item()
+    tol = 2e-5 * (1 + ref.abs().max().item())
+    del out, ref
+    if not err <= tol:
+        raise AssertionError(f"prefill attention {name}: {err} > {tol}")
+    res = dict(case=name, T=T, Hq=Hq, Hkv=Hkv, max_abs_err=err, tol=tol)
+    res["ms"] = time_ms(lambda: pops.prefill_attention(q, k, v), reps=10)
+    res["plain_ms"] = time_ms(lambda: pops.prefill_attention_plain(q, k, v),
+                              reps=3)
+    G = Hq // Hkv
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+    res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), reps=10)
+    pairs = T * (T + 1) / 2
+    res["bound_ms"] = pairs * 4 * 128 * Hq / BF16_FLOPS * 1e3
+    res["bound_split_ms"] = 2 * res["bound_ms"]
+    res["bound_by"] = "operations"
+    res["tflops"] = pairs * 4 * 128 * Hq / res["ms"] / 1e9
+    log(f"  prefill attention {name} (T {T}, Hq {Hq}, Hkv {Hkv}): err "
+        f"{err:.3e} vs tol {tol:.3e}; kernel {res['ms']:.3f} ms "
+        f"({res['tflops']:.1f} TFLOP/s of causal work), twin "
+        f"{res['plain_ms']:.3f} ms, sdpa {res['library_ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.3f} ms (split p v {res['bound_split_ms']:.3f})")
     return res
 
 
@@ -3356,6 +3407,11 @@ def main(argv=None):
                                      paged=res, merge=mres)
         del args
     results["block_gather"].append(gather_case())
+    log("phase 2d: prefill attention vs twin at the admission shapes of "
+        "mistral-7b (T 16384, G 4) and mixtral-8x22b (T 4096, G 6), timed")
+    prefill_attn = [prefill_attention_case("mistral_16384", 16384, 32, 8),
+                    prefill_attention_case("mixtral_4096", 4096, 48, 8)]
+    torch.cuda.empty_cache()
     kmeans = kmeans_case()
     results["kmeans_step"].append(kmeans)
     torch.cuda.empty_cache()
@@ -3759,7 +3815,8 @@ def main(argv=None):
             kimi_launch=kimi_launch, moe_ffn_kimi=moe13,
             reduced_kimi_card_vs_cpu=red13, kernels=kernels,
             training=train17, sampling=sample18, step_functions=steps19,
-            sharded_retrieval=shard20, lint=lint21, **fam),
+            sharded_retrieval=shard20, lint=lint21,
+            prefill_attention=prefill_attn, **fam),
             indent=1))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

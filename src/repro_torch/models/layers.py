@@ -4,7 +4,9 @@ attention of the monolithic prefill.
 
 Port of ``repro/models/layers.py``. Parameters are plain dicts of tensors.
 ``flash_attention_jnp`` keeps the reference's name: it is plain code there
-too (no Pallas kernel), so plain PyTorch is its port.
+(no Pallas kernel); here its plain body is ``kernels/prefill_attention/
+ref.py`` (with ``soft_cap`` and ``_repeat_kv``), and the calls of blocking
+admission on a CUDA card go to that package's kernel.
 """
 from __future__ import annotations
 
@@ -12,6 +14,11 @@ import math
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels.prefill_attention import ops as PA
+# soft_cap and _repeat_kv stay importable from here, as in the reference
+from repro_torch.kernels.prefill_attention.ref import (  # noqa: F401
+    prefill_attention_ref, repeat_kv as _repeat_kv, soft_cap)
 
 
 def dense_init(gen: torch.Generator, shape, dtype, device, scale=None):
@@ -79,67 +86,25 @@ def sinusoidal_positions(length: int, dim: int, device=None):
     return pe
 
 
-def soft_cap(scores, cap: Optional[float]):
-    if cap is None or cap <= 0:
-        return scores
-    return cap * torch.tanh(scores / cap)
-
-
-def _repeat_kv(k, n_rep: int):
-    """(B, T, Hkv, d) -> (B, T, Hkv*n_rep, d); head h*n_rep + j copies
-    kv-head h."""
-    if n_rep == 1:
-        return k
-    b, t, h, d = k.shape
-    return k[:, :, :, None, :].expand(b, t, h, n_rep, d).reshape(
-        b, t, h * n_rep, d)
-
-
 def flash_attention_jnp(q, k, v, *, causal: bool = True, window=None,
                         softcap: Optional[float] = None, q_offset=0,
                         block: int = 1024):
-    """Chunked online-softmax attention over key blocks of ``block`` tokens,
-    in f32 (memory O(Tq * block) per head).
+    """Attention of queries at positions q_offset.. against keys 0..Tk-1,
+    in f32: q (B, Tq, Hq, d); k, v (B, Tk, Hkv, d); GQA; ``window`` a
+    sliding-window width (None = global); returns (B, Tq, Hq, d) in q's
+    dtype.
 
-    q: (B, Tq, Hq, d); k, v: (B, Tk, Hkv, d); GQA by head repetition.
-    ``window``: sliding-window width (a float; None = global). ``q_offset``:
-    absolute position of q[0]. Masked keys score ``-inf``; a row that has
-    seen no valid key yet keeps ``m = -inf`` and is guarded by ``m_safe``
-    and ``corr`` as in the reference, so fully masked rows give 0, not NaN.
-    Returns (B, Tq, Hq, d) in q's dtype.
-    """
-    b, tq, hq, d = q.shape
-    tk, hkv = k.shape[1], k.shape[2]
-    n_rep = hq // hkv
-    dev = q.device
-    scale = 1.0 / math.sqrt(d)
-    qf = q.float() * scale
-    kf = _repeat_kv(k, n_rep).float()
-    vf = _repeat_kv(v, n_rep).float()
-    q_pos = q_offset + torch.arange(tq, device=dev)
-    m = torch.full((b, hq, tq), -math.inf, device=dev)
-    l = torch.zeros((b, hq, tq), device=dev)
-    acc = torch.zeros((b, hq, tq, d), device=dev)
-    for j0 in range(0, max(tk, 1), block):
-        kb, vb = kf[:, j0:j0 + block], vf[:, j0:j0 + block]
-        n = kb.shape[1]
-        s = soft_cap(torch.einsum("bqhd,bkhd->bhqk", qf, kb), softcap)
-        k_pos = j0 + torch.arange(n, device=dev)
-        valid = torch.ones((tq, n), dtype=torch.bool, device=dev)
-        if causal:
-            valid = valid & (k_pos[None, :] <= q_pos[:, None])
-        if window is not None:
-            valid = valid & (k_pos[None, :] > q_pos[:, None] - window)
-        s = torch.where(valid, s, -math.inf)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-        p = torch.where(valid, torch.exp(s - m_safe[..., None]), 0.0)
-        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
-        m = m_new
-    out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.transpose(1, 2).to(q.dtype)
+    On a CUDA card the calls ``prefill_attention.covers`` admits (causal,
+    no soft cap, a window that masks nothing, bf16 at head dim 128, no
+    gradient) run the hand-written kernel ``kernels/prefill_attention``;
+    every other call, and every call on the CPU, runs the plain body
+    ``prefill_attention_ref`` (chunked over key blocks of ``block``)."""
+    if q.is_cuda and PA.covers(q, k, v, causal=causal, window=window,
+                               softcap=softcap, q_offset=q_offset):
+        return PA.prefill_attention(q, k, v, q_offset=q_offset)
+    return prefill_attention_ref(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, q_offset=q_offset,
+                                 block=block)
 
 
 def attention_qkv(p, x, n_heads: int, n_kv: int, head_dim: int, positions,

@@ -5,8 +5,11 @@ tiles per split through the cp.async ring, an all-empty row, the same
 bits from two calls, group sizes mixed in one process, G 3, 5, 6 and 7
 between the powers of two, and G 1 at hd 64 at the shapes zamba2-1.2b and
 whisper-tiny serve), the block gather (chunked blocks,
-out-of-range ids, refused views) and the k-means step (ragged tiles, exact
-ties, bit-equal sums run to run). Imports no JAX, so it also runs on a
+out-of-range ids, refused views), the k-means step (ragged tiles, exact
+ties, bit-equal sums run to run) and the prefill attention (mistral's and
+mixtral's admission shapes, ragged and tiny prompts, a prefix offset, a
+padded row, p kept in f32, the dispatch of ``flash_attention_jnp``, one
+launch a layer from ``apply_prefill``). Imports no JAX, so it also runs on a
 machine with the card and without JAX:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
@@ -18,9 +21,12 @@ from repro_torch.kernels.gather import ops as gather_ops
 from repro_torch.kernels.kmeans import ops as kmeans_ops
 from repro_torch.kernels.kmeans.ref import (kmeans_step_check,
                                             ordered_update_ref)
+from repro_torch.kernels.prefill_attention import ops as pa_ops
 from repro_torch.kernels.wave_attention import ops
 from repro_torch.kernels.wave_attention.ref import (random_decode_inputs,
                                                    random_merge_inputs)
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import GLOBAL_WINDOW
 
 torch.set_num_threads(2)
 SMALL = dict(H=2, hd=32, M=48, cap=16, lbuf=160, r=3, e=10, q_pos=(900, 300),
@@ -345,3 +351,158 @@ def test_cuda_kmeans_exact_ties_take_the_lowest_index(cuda, k):
     same = torch.ones_like(cent)
     _, counts, assign = kmeans_ops.kmeans_step(x, same)
     assert (assign == 0).all() and (counts[:, 0] == 500).all()
+
+
+# ---------------------------------------------------------------------------
+# prefill attention (blocking admission's causal attention)
+# ---------------------------------------------------------------------------
+
+# (B, Tq, Hq, Hkv, q_offset): mistral's long-cell prompts (G 4) at a whole
+# and a ragged length, mixtral's (G 6) at both ends of its mix, prompts
+# below one 128-row block and one 64-key tile, and queries past a prefix
+PREFILL_CASES = {
+    "long_16384": (1, 16384, 32, 8, 0),
+    "long_ragged_12289": (1, 12289, 32, 8, 0),
+    "mixtral_2049": (1, 2049, 48, 8, 0),
+    "mixtral_6143": (1, 6143, 48, 8, 0),
+    "below_one_tile": (2, 5, 32, 8, 0),
+    "q_offset_77": (1, 300, 32, 8, 77),
+}
+# Kernel against twin, both f32 out of the same bf16 inputs: they differ by
+# f32 rounding alone (the kernel sums q k exactly in the tensor cores and
+# scales after, adds p v a tile at a time and in another order, and the
+# tensor cores' f32 accumulation truncates), ~1e-6 of the output's scale;
+# a bf16 p (2^-9 relative) misses by ~1e-3 where few keys dominate.
+PREFILL_TOL = 2e-5
+
+
+def _prefill_inputs(cuda, B, Tq, Hq, Hkv, q_offset, seed=0, qk_scale=1.0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    Tk = q_offset + Tq
+
+    def randn(*shape, s=1.0):
+        return (torch.randn(shape, generator=g, device=cuda) * s).bfloat16()
+    return (randn(B, Tq, Hq, 128, s=qk_scale), randn(B, Tk, Hkv, 128,
+                                                      s=qk_scale),
+            randn(B, Tk, Hkv, 128))
+
+
+def _prefill_err(out, ref):
+    return ((out - ref).abs().max().item(),
+            PREFILL_TOL * (1 + ref.abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PREFILL_CASES))
+def test_cuda_prefill_attention_matches_twin(cuda, case):
+    B, Tq, Hq, Hkv, off = PREFILL_CASES[case]
+    q, k, v = _prefill_inputs(cuda, B, Tq, Hq, Hkv, off)
+    before = pa_ops.prefill_attention.launches
+    out = pa_ops.prefill_attention(q, k, v, q_offset=off,
+                                   out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert pa_ops.prefill_attention.launches == before + 1
+    ref = pa_ops.prefill_attention_plain(q, k, v, q_offset=off,
+                                         out_dtype=torch.float32)
+    err, tol = _prefill_err(out, ref)
+    assert torch.isfinite(out).all()
+    assert err <= tol, (err, tol)
+    assert torch.equal(pa_ops.prefill_attention(
+        q, k, v, q_offset=off, out_dtype=torch.float32), out)
+    # bf16 out is the f32 result rounded once
+    assert torch.equal(pa_ops.prefill_attention(q, k, v, q_offset=off),
+                       out.bfloat16())
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_attention_padded_row(cuda):
+    """A right-padded row (pads after its real tokens, as blocking admission
+    batches ragged prompts) gives its real rows the bits of the same prompt
+    alone: causality hides the pads."""
+    q, k, v = _prefill_inputs(cuda, 2, 1000, 32, 8, 0, seed=1)
+    n = 613
+    out = pa_ops.prefill_attention(q, k, v, out_dtype=torch.float32)
+    alone = pa_ops.prefill_attention(q[1:, :n], k[1:, :n], v[1:, :n],
+                                     out_dtype=torch.float32)
+    assert torch.equal(out[1, :n], alone[0])
+    ref = pa_ops.prefill_attention_plain(q, k, v, out_dtype=torch.float32)
+    err, tol = _prefill_err(out, ref)
+    assert err <= tol, (err, tol)
+
+
+def _bf16_p_attention(q, k, v):
+    """Causal attention whose p is rounded to bf16 before p v (l from the
+    f32 p): the single-pass variant the kernel's three-way split avoids."""
+    B, T, Hq, d = q.shape
+    G = Hq // k.shape[2]
+    kf = k.float().repeat_interleave(G, dim=2)
+    vf = v.float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / d ** 0.5
+    causal = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+    s = s.masked_fill(~causal, float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bhqk,bkhd->bhqd", p.bfloat16().float(), vf)
+    return (o / p.sum(dim=-1)[..., None]).transpose(1, 2)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_attention_keeps_p_in_f32(cuda):
+    """Scores spread wide (q, k at 3x unit scale) let a few keys share each
+    row's weight with p far from bf16 values: the kernel stays within the
+    f32 tolerance of the twin, and p rounded to bf16 does not."""
+    q, k, v = _prefill_inputs(cuda, 1, 256, 32, 8, 0, seed=2, qk_scale=3.0)
+    ref = pa_ops.prefill_attention_plain(q, k, v, out_dtype=torch.float32)
+    err, tol = _prefill_err(pa_ops.prefill_attention(
+        q, k, v, out_dtype=torch.float32), ref)
+    assert err <= tol, (err, tol)
+    err16, _ = _prefill_err(_bf16_p_attention(q, k, v), ref)
+    assert err16 > 10 * tol, (err16, tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_routes_covered_calls(cuda):
+    """``flash_attention_jnp`` launches the kernel for causal bf16 hd-128
+    calls with no soft cap and the global layers' window sentinel, with the
+    kernel's bits; a soft cap, a window that masks, hd 64, f32 inputs or a
+    gradient keep the plain body."""
+    q, k, v = _prefill_inputs(cuda, 1, 700, 32, 8, 0, seed=3)
+    before = pa_ops.prefill_attention.launches
+    out = L.flash_attention_jnp(q, k, v, causal=True, window=GLOBAL_WINDOW)
+    assert pa_ops.prefill_attention.launches == before + 1
+    assert torch.equal(out, pa_ops.prefill_attention(q, k, v))
+    before = pa_ops.prefill_attention.launches
+    plain = [dict(softcap=50.0), dict(window=256.0), dict(causal=False)]
+    for kw in plain:
+        L.flash_attention_jnp(q, k, v, **{"causal": True, **kw})
+    L.flash_attention_jnp(q[..., :64], k[..., :64], v[..., :64])
+    L.flash_attention_jnp(q.float(), k.float(), v.float())
+    with torch.enable_grad():
+        L.flash_attention_jnp(q.requires_grad_(), k, v)
+    torch.cuda.synchronize()
+    assert pa_ops.prefill_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_apply_prefill_launches_once_per_layer(cuda):
+    """Blocking admission at mistral's attention widths (d_model 4096, Hq
+    32, Hkv 8, hd 128, bf16; two layers, a small vocabulary and FFN) runs
+    the kernel once per layer per admission, ragged batch included."""
+    from repro_torch.configs.minitron_8b import CONFIG
+    from repro_torch.models import model as M
+    cfg = CONFIG.replace(n_layers=2, d_ff=2048, vocab=1024)
+    params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    before = pa_ops.prefill_attention.launches
+    for T in (1500, 777):
+        toks = torch.randint(0, cfg.vocab, (1, T), generator=g, device=cuda)
+        logits, _ = M.apply_prefill(params, cfg, {"tokens": toks},
+                                    gen_headroom=256)
+        assert torch.isfinite(logits).all()
+    toks = torch.randint(0, cfg.vocab, (2, 900), generator=g, device=cuda)
+    lens = torch.tensor([900, 640], device=cuda)
+    logits, _ = M.apply_prefill(params, cfg, {"tokens": toks}, lengths=lens,
+                                gen_headroom=256)
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits).all()
+    assert pa_ops.prefill_attention.launches == before + 3 * cfg.n_layers

@@ -1,5 +1,6 @@
 """Blocking admission on the port against the JAX package: the monolithic
-prefill's pieces (``flash_attention_jnp``, ``segmented_cluster``,
+prefill's pieces (``flash_attention_jnp`` and the dispatch of its calls to
+the prefill attention kernel, ``segmented_cluster``,
 ``prefill_build``, ``block_sparse_attention``) and ``apply_prefill`` on
 gemma2-2b ``reduced()`` under both runtimes, on the same numpy inputs.
 
@@ -30,8 +31,11 @@ from repro_torch.core import wave_index as PW
 from repro_torch.core.sparse_prefill import block_sparse_attention
 from repro_torch.core.zones import plan_zones
 from repro_torch.interop import params_from_numpy, wave_state_to_numpy
+from repro_torch.kernels.prefill_attention import ops as PA
+from repro_torch.kernels.prefill_attention.ref import prefill_attention_ref
 from repro_torch.models import layers as PL
 from repro_torch.models import model as M
+from repro_torch.models.transformer import GLOBAL_WINDOW
 
 torch.set_num_threads(2)
 KW = dict(avg_cluster=8, cluster_cap=16, prefill_segment=64,
@@ -90,6 +94,87 @@ def test_repeat_kv_matches_reference():
     np.testing.assert_array_equal(
         PL._repeat_kv(torch.from_numpy(k), 4).numpy(),
         np.asarray(RL._repeat_kv(jnp.asarray(k), 4)))
+
+
+# (kwargs of flash_attention_jnp, input changes) -> whether the CUDA kernel
+# takes the call: causal, no soft cap, a window that masks nothing, bf16 at
+# an instantiated head dim, no gradient
+ROUTES = {
+    "global_sentinel": (dict(window=GLOBAL_WINDOW), {}, True),
+    "no_window": (dict(), {}, True),
+    # 40 queries from position 1: the farthest query-key distance is 40
+    "window_past_every_distance": (dict(window=41.0, q_offset=1), {}, True),
+    "window_at_the_farthest_distance": (dict(window=40.0, q_offset=1), {},
+                                        False),
+    "q_offset": (dict(q_offset=7, window=GLOBAL_WINDOW), {}, True),
+    "negative_q_offset": (dict(q_offset=-5), {}, False),
+    "tensor_q_offset": (dict(q_offset=torch.tensor(3)), {}, False),
+    "tensor_window": (dict(window=torch.tensor(GLOBAL_WINDOW)), {}, False),
+    "softcap": (dict(softcap=50.0, window=GLOBAL_WINDOW), {}, False),
+    "not_causal": (dict(causal=False), {}, False),
+    "sliding_window": (dict(window=16.0), {}, False),
+    "hd64": (dict(), dict(hd=64), False),
+    "hd256": (dict(), dict(hd=256), False),
+    "f32": (dict(), dict(dtype=torch.float32), False),
+    "grad": (dict(), dict(grad=True), False),
+}
+
+
+@pytest.mark.parametrize("name", list(ROUTES))
+def test_prefill_kernel_route(name):
+    """The dispatch predicate of ``flash_attention_jnp``'s kernel route, on
+    CPU tensors (device aside, the same decision as on the card); the CPU
+    call itself always runs the plain body and launches nothing."""
+    kw, change, want = ROUTES[name]
+    hd, dtype = change.get("hd", 128), change.get("dtype", torch.bfloat16)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 40, 4, hd), generator=g).to(dtype)
+    k = torch.randn((1, 40, 2, hd), generator=g).to(dtype)
+    v = torch.randn((1, 40, 2, hd), generator=g).to(dtype)
+    if change.get("grad"):
+        q.requires_grad_()
+    route = {**dict(causal=True, window=None, softcap=None, q_offset=0),
+             **kw}
+    assert PA.covers(q, k, v, **route) is want
+    with torch.no_grad():
+        assert PA.covers(q, k, v, **route) is (want or name == "grad")
+    if not isinstance(kw.get("q_offset", 0), int) or name == "hd256":
+        return
+    before = PA.prefill_attention.launches
+    out = PL.flash_attention_jnp(q, k, v, **kw)
+    assert PA.prefill_attention.launches == before
+    plain = prefill_attention_ref(q, k, v, **kw)
+    assert torch.equal(out, plain)
+
+
+def test_prefill_wrapper_checks_and_cpu_twin():
+    """The wrapper's argument checks, and on the CPU its plain twin: the
+    plain body at causal, in f32 or rounded once to bf16."""
+    g = torch.Generator().manual_seed(1)
+
+    def bf(*shape):
+        return torch.randn(shape, generator=g).bfloat16()
+    q, k, v = bf(2, 30, 6, 128), bf(2, 33, 2, 128), bf(2, 33, 2, 128)
+    out = PA.prefill_attention(q, k, v, q_offset=3, out_dtype=torch.float32)
+    ref = prefill_attention_ref(q, k, v, causal=True, q_offset=3,
+                                out_dtype=torch.float32)
+    assert out.dtype == torch.float32 and torch.equal(out, ref)
+    assert torch.equal(PA.prefill_attention(q, k, v, q_offset=3),
+                       ref.bfloat16())
+    bad = {
+        "k_v_shapes": ((q, k, v[:, :5]), ValueError),
+        "batch": ((q, k[:1], v[:1]), ValueError),
+        "hkv_divides_hq": ((bf(2, 30, 5, 128), k, v), ValueError),
+        "head_dim": ((q[..., :64], k[..., :64], v[..., :64]), ValueError),
+        "hd_mismatch": ((q, k[..., :64], v[..., :64]), ValueError),
+        "rank": ((q[0], k, v), ValueError),
+        "dtype": ((q.float(), k, v), TypeError),
+    }
+    for name, (args, exc) in bad.items():
+        with pytest.raises(exc):
+            PA.prefill_attention(*args)
+        with pytest.raises(exc):
+            PA.prefill_attention_plain(*args)
 
 
 # ---------------------------------------------------------------------------
