@@ -19,8 +19,10 @@
    timed, with their bounds and device durations;
 2d. holds the prefill attention kernel (blocking admission's causal
    attention) against its twin at mistral-7b's (T 16384, G 4) and
-   mixtral-8x22b's (T 4096, G 6) admission shapes and times it beside the
-   twin, ``scaled_dot_product_attention`` and its bound;
+   mixtral-8x22b's (T 4096, G 6) admission shapes, and at k-exaone's
+   (T 16384, G 8) for its sliding layers (window 128) and its global ones,
+   and times it beside the twin, ``scaled_dot_product_attention`` and its
+   bound;
 3. serves full-width gemma2-2b (bf16, random weights from a seed) through
    ``ServeEngine(attn_impl="fused")`` — chunked admission, the wave index,
    decode through the paged kernel and a decode-time flush — and checks the
@@ -584,14 +586,19 @@ def kmeans_case(S=8, n=8192, d=256, k=512, iters=10, seed=0,
     return res
 
 
-def prefill_attention_case(name, T, Hq, Hkv, seed=0, device="cuda"):
+def prefill_attention_case(name, T, Hq, Hkv, window=0, rows=0, seed=0,
+                           device="cuda"):
     """The prefill attention kernel at one admission shape (B 1, T tokens,
-    hd 128, bf16, causal): against its plain twin in f32 out (the card
-    tests' tolerance), then timed beside the twin, the library's
+    hd 128, bf16, causal; ``window`` > 0: only the last ``window`` keys a
+    query): against its plain twin in f32 out (the card tests' tolerance),
+    on every query or, with ``rows``, on the first and last ``rows``
+    queries at their offset; then timed beside the twin, the library's
     ``scaled_dot_product_attention`` (bf16, causal, K/V repeated to Hq
-    heads outside the timing) and the bound: the causal work, 4 d Hq flops
-    a (query, key) pair, at the bf16 tensor-core peak, and the same with
-    p v counted three times (the split the kernel computes)."""
+    heads outside the timing; unwindowed calls only) and the bound: the
+    larger of the attended work, 4 d Hq flops a (query, key) pair, at the
+    bf16 tensor-core peak (with p v counted three times, the split the
+    kernel computes, beside it) and q, k, v read and the bf16 out written
+    at HBM bandwidth."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.prefill_attention import ops as pops
@@ -601,33 +608,51 @@ def prefill_attention_case(name, T, Hq, Hkv, seed=0, device="cuda"):
         return torch.randn(shape, generator=g, device=device).bfloat16()
     q, k, v = randn(1, T, Hq, 128), randn(1, T, Hkv, 128), randn(1, T, Hkv,
                                                                    128)
-    out = pops.prefill_attention(q, k, v, out_dtype=torch.float32)
-    ref = pops.prefill_attention_plain(q, k, v, out_dtype=torch.float32)
-    err = (out - ref).abs().max().item()
-    tol = 2e-5 * (1 + ref.abs().max().item())
-    del out, ref
+    out = pops.prefill_attention(q, k, v, window=window,
+                                 out_dtype=torch.float32)
+    n = min(rows, T) or T
+    err = tol = 0.0
+    for lo in sorted({0, T - n}):
+        ref = pops.prefill_attention_plain(
+            q[:, lo:lo + n], k[:, :lo + n], v[:, :lo + n], q_offset=lo,
+            window=window, out_dtype=torch.float32)
+        err = max(err, (out[:, lo:lo + n] - ref).abs().max().item())
+        tol = max(tol, 2e-5 * (1 + ref.abs().max().item()))
+        del ref
+    del out
     if not err <= tol:
         raise AssertionError(f"prefill attention {name}: {err} > {tol}")
-    res = dict(case=name, T=T, Hq=Hq, Hkv=Hkv, max_abs_err=err, tol=tol)
-    res["ms"] = time_ms(lambda: pops.prefill_attention(q, k, v), reps=10)
-    res["plain_ms"] = time_ms(lambda: pops.prefill_attention_plain(q, k, v),
-                              reps=3)
+    res = dict(case=name, T=T, Hq=Hq, Hkv=Hkv, window=window,
+               checked_rows=n, max_abs_err=err, tol=tol)
+    res["ms"] = time_ms(lambda: pops.prefill_attention(q, k, v,
+                                                       window=window),
+                        reps=10)
+    res["plain_ms"] = time_ms(lambda: pops.prefill_attention_plain(
+        q, k, v, window=window), reps=3)
     G = Hq // Hkv
-    qt = q.transpose(1, 2)
-    kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
-    vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
-    res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), reps=10)
-    pairs = T * (T + 1) / 2
-    res["bound_ms"] = pairs * 4 * 128 * Hq / BF16_FLOPS * 1e3
-    res["bound_split_ms"] = 2 * res["bound_ms"]
-    res["bound_by"] = "operations"
+    if not window:
+        qt = q.transpose(1, 2)
+        kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+        res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), reps=10)
+        del qt, kt, vt
+    W = window or T
+    pairs = sum(min(t + 1, W) for t in range(T))
+    ops_ms = pairs * 4 * 128 * Hq / BF16_FLOPS * 1e3
+    bytes_ms = 2 * 128 * T * (2 * Hq + 2 * Hkv) / HBM_BYTES_PER_S * 1e3
+    res["bound_ms"] = max(ops_ms, bytes_ms)
+    res["bound_split_ms"] = max(2 * ops_ms, bytes_ms)
+    res["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    res["roofline_pct"] = 100.0 * res["bound_ms"] / res["ms"]
     res["tflops"] = pairs * 4 * 128 * Hq / res["ms"] / 1e9
-    log(f"  prefill attention {name} (T {T}, Hq {Hq}, Hkv {Hkv}): err "
-        f"{err:.3e} vs tol {tol:.3e}; kernel {res['ms']:.3f} ms "
-        f"({res['tflops']:.1f} TFLOP/s of causal work), twin "
-        f"{res['plain_ms']:.3f} ms, sdpa {res['library_ms']:.3f} ms, bound "
-        f"{res['bound_ms']:.3f} ms (split p v {res['bound_split_ms']:.3f})")
+    lib = f", sdpa {res['library_ms']:.3f} ms" if "library_ms" in res else ""
+    log(f"  prefill attention {name} (T {T}, Hq {Hq}, Hkv {Hkv}, window "
+        f"{window or 'none'}): err {err:.3e} vs tol {tol:.3e} on {n} rows "
+        f"at each end; kernel {res['ms']:.3f} ms ({res['tflops']:.1f} "
+        f"TFLOP/s of attended work), twin {res['plain_ms']:.3f} ms{lib}, "
+        f"bound {res['bound_ms']:.3f} ms by {res['bound_by']} (split p v "
+        f"{res['bound_split_ms']:.3f}), {res['roofline_pct']:.1f}% of it")
     return res
 
 
@@ -3408,9 +3433,14 @@ def main(argv=None):
         del args
     results["block_gather"].append(gather_case())
     log("phase 2d: prefill attention vs twin at the admission shapes of "
-        "mistral-7b (T 16384, G 4) and mixtral-8x22b (T 4096, G 6), timed")
-    prefill_attn = [prefill_attention_case("mistral_16384", 16384, 32, 8),
-                    prefill_attention_case("mixtral_4096", 4096, 48, 8)]
+        "mistral-7b (T 16384, G 4), mixtral-8x22b (T 4096, G 6) and "
+        "k-exaone's sliding (W 128) and global layers (T 16384, G 8), timed")
+    prefill_attn = [
+        prefill_attention_case("mistral_16384", 16384, 32, 8),
+        prefill_attention_case("mixtral_4096", 4096, 48, 8),
+        prefill_attention_case("kexaone_w128", 16384, 64, 8, window=128,
+                               rows=2048),
+        prefill_attention_case("kexaone_global", 16384, 64, 8, rows=2048)]
     torch.cuda.empty_cache()
     kmeans = kmeans_case()
     results["kmeans_step"].append(kmeans)

@@ -8,6 +8,14 @@ kept identical so a test can compare the two packages field by field;
 serving), ``cache_clusters``, ``cache_frac`` and ``cache_policy`` (its
 device block cache) are the serve engine's defaults. Engines and launchers
 may override each per run.
+
+Port-only fields follow the reference's in each dataclass, each with a
+default that gives the reference's model (every config the reference has
+keeps them at their defaults): on ``AttnConfig`` the ring cache of sliding
+layers, the per-head QK norm and where RoPE applies; on ``MoEConfig`` the
+router's scoring, the shared expert, the routed scale, the published
+expert count and the first expert held here (an expert-parallel share); on
+``ModelConfig`` the norm placement and the leading dense layers.
 """
 from __future__ import annotations
 
@@ -26,6 +34,12 @@ class AttnConfig:
     sliding_window: Optional[int] = None     # window width for "local" layers
     # layer pattern, cycled over depth: "g" global, "l" local(sliding window)
     pattern: Tuple[str, ...] = ("g",)
+    # ---- port-only ----
+    # "l" layers keep only their last ``sliding_window`` keys and values in
+    # a ring under the retro runtime (exact attention), not a wave index
+    ring_window: bool = False
+    qk_norm: bool = False                    # per-head RMSNorm of q and k
+    rope_layers: str = "all"                 # "all" | "l" (global: NoPE)
 
 
 @dataclass(frozen=True)
@@ -36,6 +50,25 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_jitter: float = 0.0
     aux_loss_weight: float = 0.01
+    # ---- port-only: the expert-parallel share layer (``scoring="sigmoid"``,
+    # ``models/moe.py::share_apply``) ----
+    scoring: str = "softmax"                 # "softmax" | "sigmoid"
+    d_shared: int = 0                        # shared expert width (0: none)
+    routed_scale: float = 1.0                # on the renormalised weights
+    n_routed: int = 0                        # experts routed over (0: all held)
+    expert_lo: int = 0                       # first expert held here
+
+    @property
+    def routed(self) -> int:
+        """Experts the router scores: the published count."""
+        return self.n_routed or self.num_experts
+
+    @property
+    def share(self) -> bool:
+        """Whether the layer is the expert-parallel share layer
+        (``models/moe.py::share_apply``), which the sigmoid router selects;
+        the softmax router runs the capacity-padded ``moe_apply``."""
+        return self.scoring == "sigmoid"
 
 
 @dataclass(frozen=True)
@@ -109,6 +142,10 @@ class ModelConfig:
     dtype: str = "bfloat16"                  # param/compute dtype
     retro: RetroConfig = field(default_factory=RetroConfig)
     source: str = ""                         # citation
+    # ---- port-only ----
+    # "pre": x + f(norm(x)); "post": x + norm(f(x)), no input norm
+    norm_placement: str = "pre"
+    dense_layers: int = 0                    # leading MLP layers of a moe model
 
     @property
     def n_heads(self) -> int:
@@ -146,12 +183,17 @@ class ModelConfig:
             per_layer += qkv + a.n_heads * a.head_dim * d
         if self.moe is not None:
             per_layer += self.moe.num_experts * 3 * d * self.moe.d_expert
-            per_layer += d * self.moe.num_experts  # router
+            per_layer += d * self.moe.routed  # router
+            per_layer += 3 * d * self.moe.d_shared
         elif self.ssm is not None and self.attn is None:
             per_layer += 8 * d * d  # rough ssm block size
         else:
             per_layer += 3 * d * self.d_ff
         n += per_layer * L
+        if self.moe is not None and self.dense_layers:
+            n += self.dense_layers * (3 * d * self.d_ff - 3 * d * (
+                self.moe.num_experts * self.moe.d_expert + self.moe.d_shared)
+                - d * self.moe.routed)
         if self.shared_attn_every and self.attn is not None:
             a = self.attn
             n += (d * a.n_heads * a.head_dim + 2 * d * a.n_kv_heads * a.head_dim
@@ -162,7 +204,8 @@ class ModelConfig:
         """Active parameters per token (MoE: top_k experts only)."""
         if self.moe is None:
             return self.param_count()
-        expert = self.n_layers * 3 * self.d_model * self.moe.d_expert
+        expert = (self.n_layers - self.dense_layers) * 3 * self.d_model \
+            * self.moe.d_expert
         return (self.param_count() - expert * self.moe.num_experts
                 + expert * self.moe.top_k)
 

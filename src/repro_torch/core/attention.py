@@ -27,6 +27,11 @@ a kernel impl raises rather than be silently unused.
 The dense-cache runtime (``runtime="full"``, the paper's full-attention
 comparator) is here too: ``DenseCache``, ``dense_cache_append`` and
 ``full_attention_decode``, plain code in the reference as in the port.
+
+Port-only: ``RingCache``, the state of a sliding-window layer that keeps
+only its window under the retro runtime (``AttnConfig.ring_window``):
+``ring_from_prompt``, ``ring_append`` (in place, inside the captured step)
+and ``ring_attention_decode`` (exact, f32 accumulation).
 """
 from __future__ import annotations
 
@@ -493,4 +498,79 @@ def full_attention_decode(q, cache: DenseCache, *, window=None, softcap=None,
     s = torch.where(ok[:, None, None, :], s, NEG)
     p = torch.softmax(s, dim=-1).to(dt)
     out = _f32_product(p, v)
+    return out.reshape(B, Hq, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the ring of a sliding-window layer (port-only)
+# ---------------------------------------------------------------------------
+
+class RingCache(NamedTuple):
+    """The last W keys and values of each row: slot s holds the newest
+    position p with p % W == s (``pos``; -1 where none yet)."""
+    k: torch.Tensor            # (B, H, W, hd)
+    v: torch.Tensor            # (B, H, W, hd)
+    pos: torch.Tensor          # (B, W) int32
+    length: torch.Tensor       # (B,) int32 — tokens seen per row
+
+
+def init_ring(B, H, W, hd, dtype, device, length: int = 0) -> RingCache:
+    z = lambda: torch.zeros((B, H, W, hd), dtype=dtype, device=device)
+    return RingCache(z(), z(),
+                     torch.full((B, W), -1, dtype=torch.int32, device=device),
+                     torch.full((B,), length, dtype=torch.int32,
+                                device=device))
+
+
+def ring_from_prompt(k, v, W: int, dtype, lengths=None) -> RingCache:
+    """The ring after a prompt: k, v (B, T, H, hd) post-RoPE; ``lengths``
+    (B,) true lengths of right-padded rows (default T). Slot s takes the
+    prompt's last position p < length with p % W == s."""
+    B, T = k.shape[:2]
+    dev = k.device
+    n = torch.full((B,), T, dtype=torch.int32, device=dev) \
+        if lengths is None else lengths.to(device=dev, dtype=torch.int32)
+    s = torch.arange(W, device=dev)
+    p = (n[:, None] - 1) - torch.remainder(n[:, None] - 1 - s, W)   # (B, W)
+    ok = p >= 0
+    at = p.clamp(min=0).long()
+    ar = torch.arange(B, device=dev)[:, None]
+    take = lambda x: torch.where(ok[..., None, None], x[ar, at], 0) \
+        .to(dtype).transpose(1, 2).contiguous()                     # (B,H,W,hd)
+    return RingCache(take(k), take(v),
+                     torch.where(ok, p, -1).to(torch.int32), n.clone())
+
+
+def ring_append(ring: RingCache, k_new, v_new,
+                active: Optional[torch.Tensor] = None) -> RingCache:
+    """Append (B, H, hd) K/V at slot length % W of each row, in place
+    (``pos`` and ``length`` too); ``active``: optional (B,) bool, inactive
+    rows keep their bits."""
+    B, _, W, _ = ring.k.shape
+    ar = torch.arange(B, device=k_new.device)
+    slot = torch.remainder(ring.length, W).long()
+    write = torch.ones((B,), dtype=torch.bool, device=k_new.device) \
+        if active is None else active
+    for buf, new in ((ring.k, k_new), (ring.v, v_new)):
+        buf[ar, :, slot] = torch.where(write[:, None, None],
+                                       new.to(buf.dtype), buf[ar, :, slot])
+    ring.pos[ar, slot] = torch.where(write, ring.length, ring.pos[ar, slot])
+    ring.length.add_(write.to(torch.int32))
+    return ring
+
+
+def ring_attention_decode(q, ring: RingCache, *, softcap=None):
+    """q: (B, Hq, hd) -> (B, Hq, hd) in q's dtype: an exact softmax over
+    the ring's valid slots (within the window of the row's newest
+    position). Scores accumulate in f32 (``_f32_product``: on the card the
+    16-bit ring is read as it is); the probabilities stay f32, and the
+    values are widened to f32 for their product."""
+    B, Hq, hd = q.shape
+    Hkv, W = ring.k.shape[1], ring.k.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, hd).to(ring.k.dtype)
+    s = soft_cap(_f32_product(qg, ring.k.transpose(2, 3))
+                 * (1.0 / math.sqrt(hd)), softcap)                 # (B,H,G,W)
+    ok = (ring.pos >= 0) & (ring.pos > (ring.length - 1)[:, None] - W)
+    p = torch.softmax(torch.where(ok[:, None, None, :], s, NEG), dim=-1)
+    out = torch.matmul(p, ring.v.float())
     return out.reshape(B, Hq, hd).to(q.dtype)

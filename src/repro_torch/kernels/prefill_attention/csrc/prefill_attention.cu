@@ -11,7 +11,8 @@
 //
 // What it computes: for q (B, Tq, Hq, 128), k, v (B, Tk, Hkv, 128), all
 // bf16, G = Hq / Hkv query heads per kv head, query t at absolute position
-// q_offset + t and key j valid where j <= q_offset + t:
+// p = q_offset + t and key j valid where j <= p (and, with a sliding
+// window W > 0, j > p - W: the W positions ending at p):
 //   out[b, t, h] = sum_j softmax_j(<q, k_j> / sqrt(128)) v_j
 // in f32, written in f32 or rounded once to bf16.
 //
@@ -47,6 +48,12 @@
 //   its running max, sum and rescale in f32 (expf, no fast math), with the
 //   plain body's guards: m_safe = 0 while a row has seen no valid key, and
 //   corr = 0 from an empty row. Only out is written to device memory.
+// * A sliding window (a separate instantiation, so calls without one run
+//   the same instructions as before it existed) adds the lower bound: a
+//   block starts at the tile holding its first row's oldest visible key,
+//   p - W + 1, so tiles wholly below every row's window are never loaded;
+//   the tiles that cross its last row's lower edge are masked per element.
+//   A block then walks about (W + 128 / G) / 64 tiles, whatever T is.
 // * Blocks run heaviest first (the last query rows walk the most tiles), so
 //   the card's last wave is short. Each sum runs in a fixed order, with no
 //   atomics: a shape gives the same bits on every call.
@@ -180,13 +187,13 @@ __device__ __forceinline__ void issue_kv(uint32_t sk, uint32_t sv,
   }
 }
 
-template <typename OutT>
+template <typename OutT, bool WINDOWED>
 __global__ void __launch_bounds__(NT, 1)
 prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          OutT* __restrict__ out, int Tq, int Tk, int Hq,
-                         int Hkv, int q_offset, float scale) {
+                         int Hkv, int q_offset, int window, float scale) {
   extern __shared__ __align__(128) uint8_t smem[];
   const int G = Hq / Hkv;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -200,6 +207,11 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
   // tiles from here on need the per-element mask: they cross the first
   // row's diagonal or run past Tk
   const int first_pos = q_offset + f0 / G;
+  // windowed: the first tile holds the first row's oldest visible key;
+  // tiles below the last row's oldest visible key cross its window's edge
+  const int lo_first = first_pos - window + 1;
+  const int j0 = WINDOWED && lo_first > 0 ? lo_first / BN : 0;
+  const int lo_last = q_offset + f_last / G - window + 1;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int quad = lane / 4, qi = lane % 4;
 
@@ -219,16 +231,16 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
   uint32_t qa[KC][4];
 
-  if (n_tiles > 0) {
+  if (n_tiles > j0) {
     issue_q(sq, q, b, h, f0, Tq, Hq, G);
-    issue_kv(skv, skv + TILE_BYTES, k, v, b, h, 0, Tk, Hkv);
+    issue_kv(skv, skv + TILE_BYTES, k, v, b, h, j0 * BN, Tk, Hkv);
   }
   cp_async_commit();
 
-  for (int j = 0; j < n_tiles; ++j) {
+  for (int j = j0; j < n_tiles; ++j) {
     cp_async_wait_all();
     __syncthreads();      // tile j landed; every warp is done with tile j-1
-    if (j == 0) {
+    if (j == j0) {
       // q fragments of the warp's 16 rows, once
       const int m = lane / 8;
       const int r = warp * 16 + (m & 1) * 8 + lane % 8;
@@ -238,11 +250,11 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
                 qa[kc][2], qa[kc][3]);
     }
     if (j + 1 < n_tiles) {
-      const uint32_t nk = skv + ((j + 1) % STAGES) * 2 * TILE_BYTES;
+      const uint32_t nk = skv + ((j + 1 - j0) % STAGES) * 2 * TILE_BYTES;
       issue_kv(nk, nk + TILE_BYTES, k, v, b, h, (j + 1) * BN, Tk, Hkv);
     }
     cp_async_commit();
-    const uint32_t sk = skv + (j % STAGES) * 2 * TILE_BYTES;
+    const uint32_t sk = skv + ((j - j0) % STAGES) * 2 * TILE_BYTES;
     const uint32_t sv = sk + TILE_BYTES;
 
     // ---- s = q k^T over the tile's 64 keys (f32 accumulators) ----------
@@ -263,7 +275,8 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
 
     // ---- scale, mask, online softmax (f32) ------------------------------
     const int n0 = j * BN;
-    const bool masked = n0 + BN - 1 > first_pos || n0 + BN > Tk;
+    const bool masked = n0 + BN - 1 > first_pos || n0 + BN > Tk ||
+                        (WINDOWED && n0 < lo_last);
     float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
     for (int nt = 0; nt < NTS; ++nt) {
@@ -273,7 +286,8 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
         if (masked) {
           const int n = n0 + nt * 8 + qi * 2 + (e & 1);
           const int pos = e < 2 ? pos_a : pos_b;
-          if (n > pos || n >= Tk) x = -INFINITY;
+          if (n > pos || n >= Tk || (WINDOWED && n <= pos - window))
+            x = -INFINITY;
         }
         s[nt][e] = x;
       }
@@ -361,44 +375,58 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename OutT>
+template <typename OutT, bool WINDOWED>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Tq, int Tk, int Hq, int Hkv, int q_offset,
+           int Tq, int Tk, int Hq, int Hkv, int q_offset, int window,
            cudaStream_t st) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        prefill_attention_kernel<OutT>,
+        prefill_attention_kernel<OutT, WINDOWED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   const long long tiles = ((long long)Tq * (Hq / Hkv) + BM - 1) / BM;
   const dim3 grid((unsigned)tiles, Hkv, B);
-  prefill_attention_kernel<OutT><<<grid, NT, SMEM_BYTES, st>>>(
+  prefill_attention_kernel<OutT, WINDOWED><<<grid, NT, SMEM_BYTES, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<OutT*>(out), Tq, Tk,
-      Hq, Hkv, q_offset, 1.0f / sqrtf((float)HD));
+      Hq, Hkv, q_offset, window, 1.0f / sqrtf((float)HD));
   return cudaGetLastError();
+}
+
+template <typename OutT>
+int launch_any(const void* q, const void* k, const void* v, void* out, int B,
+               int Tq, int Tk, int Hq, int Hkv, int q_offset, int window,
+               cudaStream_t st) {
+  return window > 0
+             ? launch<OutT, true>(q, k, v, out, B, Tq, Tk, Hq, Hkv, q_offset,
+                                  window, st)
+             : launch<OutT, false>(q, k, v, out, B, Tq, Tk, Hq, Hkv, q_offset,
+                                   0, st);
 }
 
 }  // namespace
 
 // q (B, Tq, Hq, hd), k and v (B, Tk, Hkv, hd), bf16, contiguous; out
-// (B, Tq, Hq, hd) in f32 (out_f32) or bf16. Returns a cudaError_t.
+// (B, Tq, Hq, hd) in f32 (out_f32) or bf16; window > 0: a sliding window
+// of that many positions, 0: none. Returns a cudaError_t.
 extern "C" int prefill_attention(const void* q, const void* k, const void* v,
                                  void* out, int B, int Tq, int Tk, int Hq,
-                                 int Hkv, int hd, int q_offset, int out_f32,
-                                 void* stream) {
+                                 int Hkv, int hd, int q_offset, int window,
+                                 int out_f32, void* stream) {
   if (B <= 0 || Tq <= 0) return 0;
   if (hd != HD || Tk < 0 || Hkv <= 0 || Hq % Hkv != 0 || q_offset < 0 ||
+      window < 0 ||
       B > 65535 || Hkv > 65535 ||
       (long long)Tq * (Hq / Hkv) + BM > 0x7fffffffLL ||
       (long long)q_offset + Tq > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return out_f32 ? launch<float>(q, k, v, out, B, Tq, Tk, Hq, Hkv, q_offset, st)
-                 : launch<__nv_bfloat16>(q, k, v, out, B, Tq, Tk, Hq, Hkv,
-                                         q_offset, st);
+  return out_f32 ? launch_any<float>(q, k, v, out, B, Tq, Tk, Hq, Hkv,
+                                    q_offset, window, st)
+                 : launch_any<__nv_bfloat16>(q, k, v, out, B, Tq, Tk, Hq, Hkv,
+                                             q_offset, window, st);
 }

@@ -31,25 +31,40 @@ def _lib() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = lib.prefill_attention
     fn.restype = I
-    # q, k, v, out; B, Tq, Tk, Hq, Hkv, hd, q_offset, out_f32; stream
-    fn.argtypes = [P] * 4 + [I] * 8 + [P]
+    # q, k, v, out; B, Tq, Tk, Hq, Hkv, hd, q_offset, window, out_f32;
+    # stream
+    fn.argtypes = [P] * 4 + [I] * 9 + [P]
     return lib
+
+
+def kernel_window(window, q_offset: int, tq: int) -> int:
+    """The kernel's ``window`` argument for a ``flash_attention_jnp``
+    window: 0 where it masks nothing (None, or wider than the farthest
+    query-key distance, q_offset + Tq - 1: the global layers' 1e9
+    sentinel), else its width; -1 where the kernel cannot take it (a
+    tensor, as a training state holds, or not a whole number >= 1)."""
+    if window is None:
+        return 0
+    if not isinstance(window, (int, float)):
+        return -1
+    if window > q_offset + tq - 1:
+        return 0
+    if window < 1 or window != int(window):
+        return -1
+    return int(window)
 
 
 def covers(q, k, v, *, causal: bool, window, softcap, q_offset) -> bool:
     """Whether the kernel computes this ``flash_attention_jnp`` call, its
     device aside: causal with an int ``q_offset`` >= 0, no soft cap, a
-    window that masks nothing (None, or wider than the farthest query-key
-    distance, q_offset + Tq - 1: the global layers' 1e9 sentinel; a
-    tensor window, as a training state holds, is not read), bf16 operands
-    of an instantiated head dim, and no gradient asked for (the kernel has
-    no backward)."""
+    window the kernel takes (``kernel_window``: none, or a whole number of
+    positions), bf16 operands of an instantiated head dim, and no gradient
+    asked for (the kernel has no backward)."""
     if not causal or softcap is not None:
         return False
     if not isinstance(q_offset, int) or q_offset < 0:
         return False
-    if window is not None and not (isinstance(window, (int, float))
-                                   and window > q_offset + q.shape[1] - 1):
+    if kernel_window(window, q_offset, q.shape[1]) < 0:
         return False
     if q.dim() != 4 or q.shape[-1] not in HEAD_DIMS:
         return False
@@ -76,22 +91,25 @@ def _check(q, k, v):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
 
 
-def prefill_attention_plain(q, k, v, *, q_offset: int = 0, out_dtype=None):
+def prefill_attention_plain(q, k, v, *, q_offset: int = 0, window: int = 0,
+                            out_dtype=None):
     """The plain twin on the wrapper's arguments, on any device."""
     _check(q, k, v)
-    return prefill_attention_ref(q, k, v, causal=True, q_offset=q_offset,
-                                 out_dtype=out_dtype)
+    return prefill_attention_ref(q, k, v, causal=True,
+                                 window=float(window) if window else None,
+                                 q_offset=q_offset, out_dtype=out_dtype)
 
 
-def prefill_attention(q, k, v, *, q_offset: int = 0, out_dtype=None):
+def prefill_attention(q, k, v, *, q_offset: int = 0, window: int = 0,
+                      out_dtype=None):
     """q: (B, Tq, Hq, 128), k, v: (B, Tk, Hkv, 128), bf16 -> (B, Tq, Hq,
     128) in ``out_dtype`` (float32, or the default bfloat16): causal
-    softmax attention, query t at position q_offset + t seeing keys
-    0..q_offset + t, computed in f32 (``csrc/prefill_attention.cu``). Two
-    calls give the same bits."""
+    softmax attention, query t at position p = q_offset + t seeing keys
+    0..p, or with ``window`` > 0 only keys p - window + 1..p, computed in
+    f32 (``csrc/prefill_attention.cu``). Two calls give the same bits."""
     if q.device.type == "cpu":
         return prefill_attention_plain(q, k, v, q_offset=q_offset,
-                                       out_dtype=out_dtype)
+                                       window=window, out_dtype=out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v)
@@ -100,13 +118,15 @@ def prefill_attention(q, k, v, *, q_offset: int = 0, out_dtype=None):
         raise TypeError(f"out_dtype {out_dtype}: float32 or bfloat16")
     if not isinstance(q_offset, int) or q_offset < 0:
         raise ValueError(f"q_offset {q_offset!r}: an int >= 0")
+    if not isinstance(window, int) or window < 0:
+        raise ValueError(f"window {window!r}: an int >= 0 (0: none)")
     B, Tq, Hq, d = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((B, Tq, Hq, d), dtype=out_dtype, device=q.device)
     err = _lib().prefill_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq, Tk,
-        Hq, Hkv, d, q_offset, int(out_dtype == torch.float32),
+        Hq, Hkv, d, q_offset, window, int(out_dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"prefill_attention kernel launch failed: "

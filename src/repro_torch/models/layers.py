@@ -95,26 +95,38 @@ def flash_attention_jnp(q, k, v, *, causal: bool = True, window=None,
     dtype.
 
     On a CUDA card the calls ``prefill_attention.covers`` admits (causal,
-    no soft cap, a window that masks nothing, bf16 at head dim 128, no
-    gradient) run the hand-written kernel ``kernels/prefill_attention``;
-    every other call, and every call on the CPU, runs the plain body
-    ``prefill_attention_ref`` (chunked over key blocks of ``block``)."""
+    no soft cap, no window or a whole number of positions, bf16 at head dim
+    128, no gradient) run the hand-written kernel
+    ``kernels/prefill_attention``; every other call, and every call on the
+    CPU, runs the plain body ``prefill_attention_ref`` (chunked over key
+    blocks of ``block``)."""
     if q.is_cuda and PA.covers(q, k, v, causal=causal, window=window,
                                softcap=softcap, q_offset=q_offset):
-        return PA.prefill_attention(q, k, v, q_offset=q_offset)
+        return PA.prefill_attention(
+            q, k, v, q_offset=q_offset,
+            window=PA.kernel_window(window, q_offset, q.shape[1]))
     return prefill_attention_ref(q, k, v, causal=causal, window=window,
                                  softcap=softcap, q_offset=q_offset,
                                  block=block)
 
 
 def attention_qkv(p, x, n_heads: int, n_kv: int, head_dim: int, positions,
-                  theta: float):
-    """Project + rope. x: (B, T, D) -> q (B,T,Hq,hd), k,v (B,T,Hkv,hd)."""
+                  theta: float, *, qk_eps: Optional[float] = None,
+                  rope: bool = True):
+    """Project + rope. x: (B, T, D) -> q (B,T,Hq,hd), k,v (B,T,Hkv,hd).
+    With ``qk_eps``, q and k are first RMS-normed per head by
+    ``p["q_norm"]`` and ``p["k_norm"]``; ``rope`` False leaves them
+    unrotated (NoPE)."""
     b, t, _ = x.shape
     q = (x @ p["wq"]).reshape(b, t, n_heads, head_dim)
     k = (x @ p["wk"]).reshape(b, t, n_kv, head_dim)
     v = (x @ p["wv"]).reshape(b, t, n_kv, head_dim)
-    return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
+    if qk_eps is not None:
+        q = rms_norm(q, p["q_norm"], qk_eps)
+        k = rms_norm(k, p["k_norm"], qk_eps)
+    if rope:
+        q, k = apply_rope(q, positions, theta), apply_rope(k, positions, theta)
+    return q, k, v
 
 
 def rounded(c: float, dtype: torch.dtype) -> float:

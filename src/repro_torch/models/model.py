@@ -39,6 +39,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.attention import RingCache
 from repro_torch.core.wave_index import flush_segment
 from repro_torch.core.zones import ZonePlan, plan_zones
 from repro_torch.models import encdec, hybrid, rwkv6, transformer
@@ -181,11 +182,13 @@ def apply_decode(params, cfg: ModelConfig, state, token, *,
                  runtime: str = "retro", plan: Optional[ZonePlan] = None,
                  seq_len: Optional[int] = None, gen_headroom: int = 4096,
                  inline_flush: bool = False, active=None,
-                 attn_impl: Optional[str] = None):
+                 attn_impl: Optional[str] = None, moe_counts=None):
     """``active``: optional (B,) bool slot mask. ``attn_impl`` (retro
     runtime): "jnp" (reference execution-buffer path), "fused" (paged
     kernel) or "pallas" (gathered-buffer kernel); None defers to
-    ``cfg.retro.attn_impl``. ssm needs no plan (its state has no KV)."""
+    ``cfg.retro.attn_impl``. ssm needs no plan (its state has no KV).
+    ``moe_counts``: the share layers' row counters (attention families;
+    ``transformer.decode_step``)."""
     _family(cfg)
     if cfg.family == "ssm":
         return rwkv6.decode_step(params, cfg, state, token)
@@ -196,14 +199,17 @@ def apply_decode(params, cfg: ModelConfig, state, token, *,
     step = {"hybrid": hybrid.decode_step,
             "audio": encdec.decode_step}.get(cfg.family,
                                              transformer.decode_step)
+    kw = {} if moe_counts is None else {"moe_counts": moe_counts}
     return step(params, cfg, state, token, runtime=runtime, plan=plan,
-                inline_flush=inline_flush, active=active, attn_impl=attn_impl)
+                inline_flush=inline_flush, active=active, attn_impl=attn_impl,
+                **kw)
 
 
 def supports_offload(cfg: ModelConfig, runtime: str = "retro") -> bool:
     """The host-offload wave buffer needs cluster stores to offload: the
-    retro runtime on an attention family."""
-    return runtime == "retro" and cfg.family in ATTN_FAMILIES
+    retro runtime on an attention family (without ring layers)."""
+    return runtime == "retro" and cfg.family in ATTN_FAMILIES \
+        and not any(transformer.ring_layers(cfg, runtime))
 
 
 def offload_decode_fns(cfg: ModelConfig):
@@ -234,11 +240,13 @@ def flush_state(cfg: ModelConfig, state, *, runtime: str = "retro",
                 rows=None):
     """Decode-time segmented-clustering index update of every wave state
     (rows default to those whose staging buffer is full). A no-op for the
-    dense caches of the full runtime and for recurrent states."""
+    dense caches of the full runtime, for ring layers and for recurrent
+    states."""
     _family(cfg)
     if runtime != "retro" or cfg.family == "ssm":
         return state
     return state._replace(**{KV_FIELD.get(cfg.family, "kv"): [
+        st if isinstance(st, RingCache) else
         flush_segment(st, cfg.retro, rows=rows)
         for st in kv_states(cfg, state)]})
 

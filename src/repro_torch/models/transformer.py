@@ -17,10 +17,21 @@ Python loop over per-layer parameter dicts and per-layer states.
 Serve-time attention runtime, as in the reference:
   * "retro": the wave index (the paper's technique);
   * "full": a dense KV cache and exact attention (the paper's baseline).
+
+Port-only options of the block (``configs/base.py``; their defaults give the
+reference's block): post-sublayer norms (``norm_placement="post"``: x + n(f(x))
+with no input norm), a per-head RMSNorm of q and k (``attn.qk_norm``), RoPE
+on the sliding layers only (``attn.rope_layers="l"``), leading dense MLP
+layers in a moe model (``dense_layers``), the share layer of
+``models/moe.py`` (``moe.share``: the sigmoid router), and under the retro
+runtime a ring of the last ``sliding_window`` keys and values on sliding layers
+(``attn.ring_window``: ``core/attention.py::RingCache``, exact attention)
+in place of their wave index.
 """
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -39,7 +50,7 @@ from repro_torch.core.wave_index import (WaveState, append_token,
                                          scatter_chunk_rows)
 from repro_torch.core.zones import ZonePlan, plan_zones
 from repro_torch.models import layers as L
-from repro_torch.models.moe import init_moe, moe_apply_grouped
+from repro_torch.models.moe import init_moe, moe_apply_grouped, share_apply
 
 GLOBAL_WINDOW = 1.0e9   # "no sliding window" sentinel
 
@@ -51,6 +62,23 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 def layer_windows(cfg: ModelConfig) -> List[float]:
     return [float(cfg.attn.sliding_window) if kind == "l" else GLOBAL_WINDOW
             for kind in cfg.layer_kinds()]
+
+
+def ring_layers(cfg: ModelConfig, runtime: str = "retro") -> List[bool]:
+    """Per layer: whether it keeps a ring of its window (a sliding layer of
+    a config with ``attn.ring_window``, under the retro runtime)."""
+    ring = runtime == "retro" and cfg.attn is not None \
+        and cfg.attn.ring_window
+    return [ring and kind == "l" for kind in cfg.layer_kinds()]
+
+
+def refuse_ring(cfg: ModelConfig, what: str, runtime: str = "retro") -> None:
+    """Ring layers have no chunked admission and no host offload."""
+    if any(ring_layers(cfg, runtime)):
+        raise ValueError(f"{what} does not support the ring cache of "
+                         f"sliding layers (attn.ring_window, config "
+                         f"{cfg.arch_id!r}); use blocking admission and the "
+                         f"direct store")
 
 
 # ---------------------------------------------------------------------------
@@ -68,13 +96,19 @@ def init_transformer(cfg: ModelConfig, generator: torch.Generator,
     def dense(shape, scale=None):
         return L.dense_init(generator, shape, dt, device, scale)
 
+    norms = ("ln_post_attn", "ln_post_ffn") \
+        if cfg.norm_placement == "post" else ("ln1", "ln2")
     layers = []
-    for _ in range(cfg.n_layers):
-        lp = {"ln1": torch.zeros((d,), dtype=dt, device=device),
-              "ln2": torch.zeros((d,), dtype=dt, device=device),
+    for i in range(cfg.n_layers):
+        lp = {norms[0]: torch.zeros((d,), dtype=dt, device=device),
+              norms[1]: torch.zeros((d,), dtype=dt, device=device),
               "attn": L.init_attention(generator, d, a.n_heads, a.n_kv_heads,
                                        a.head_dim, dt, device)}
-        if cfg.moe is not None:
+        if a.qk_norm:
+            for n in ("q_norm", "k_norm"):
+                lp["attn"][n] = torch.zeros((a.head_dim,), dtype=dt,
+                                            device=device)
+        if cfg.moe is not None and i >= cfg.dense_layers:
             lp["moe"] = init_moe(generator, d, cfg.moe, dt, device)
         else:
             lp["mlp"] = L.init_mlp(generator, d, cfg.d_ff, dt, device)
@@ -107,34 +141,64 @@ def unembed(params, cfg: ModelConfig, x):
     return (x @ w).float()
 
 
-def _ffn(lp, x, cfg: ModelConfig):
+def _ffn(lp, x, cfg: ModelConfig, *, step: bool = False, active=None,
+         counts=None):
     """x: (..., D) -> ((..., D), aux loss): the MLP (aux 0.0), or the MoE
     FFN over every token of the call (its load-balance loss, f32; the serve
-    paths drop it)."""
-    if cfg.moe is not None:
-        y, aux = moe_apply_grouped(lp["moe"], x.reshape(-1, x.shape[-1]),
-                                   cfg.moe, cfg.act,
-                                   groups=cfg.moe_dispatch_groups)
-        return y.view(x.shape), aux
-    return L.mlp_apply(lp["mlp"], x, cfg.act), 0.0
+    paths drop it), or the share layer (aux 0.0; ``step``, ``active`` and
+    ``counts``: ``moe.share_apply``'s, for a decode step)."""
+    if "moe" not in lp:
+        return L.mlp_apply(lp["mlp"], x, cfg.act), 0.0
+    flat = x.reshape(-1, x.shape[-1])
+    if cfg.moe.share:
+        return share_apply(lp["moe"], flat, cfg.moe, cfg.act, step=step,
+                           active=active, counts=counts).view(x.shape), 0.0
+    y, aux = moe_apply_grouped(lp["moe"], flat, cfg.moe, cfg.act,
+                               groups=cfg.moe_dispatch_groups)
+    return y.view(x.shape), aux
+
+
+def _norm_in(lp, x, name: str, cfg: ModelConfig):
+    """A sublayer's input: the residual stream normed by ``lp[name]``
+    ("ln1" before attention, "ln2" before the FFN), or under post-norm the
+    stream itself."""
+    if cfg.norm_placement == "post":
+        return x
+    return L.rms_norm(x, lp[name], cfg.norm_eps)
+
+
+def _add(lp, x, y, which: str, cfg: ModelConfig):
+    """x + y, or x + n(y) under post-norm (``which``: "attn" or "ffn")."""
+    if cfg.norm_placement == "post":
+        y = L.rms_norm(y, lp["ln_post_" + which], cfg.norm_eps)
+    return x + y
+
+
+def _qkv(lp, cfg: ModelConfig, kind: str, h, positions):
+    """``L.attention_qkv`` with the config's per-head QK norm, and RoPE on
+    the layers ``attn.rope_layers`` names."""
+    a = cfg.attn
+    return L.attention_qkv(lp["attn"], h, a.n_heads, a.n_kv_heads,
+                           a.head_dim, positions, a.rope_theta,
+                           qk_eps=cfg.norm_eps if a.qk_norm else None,
+                           rope=a.rope_layers in ("all", kind))
 
 
 # ---------------------------------------------------------------------------
 # training / scoring forward (full attention, chunked online softmax)
 # ---------------------------------------------------------------------------
 
-def _train_layer(lp, window, cfg: ModelConfig, x, positions):
+def _train_layer(lp, window, cfg: ModelConfig, x, positions, kind="g"):
     """One layer of ``forward``: -> (x, the layer's aux loss)."""
     a = cfg.attn
     B, T, _ = x.shape
-    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q, k, v = L.attention_qkv(lp["attn"], h, a.n_heads, a.n_kv_heads,
-                              a.head_dim, positions, a.rope_theta)
+    h = _norm_in(lp, x, "ln1", cfg)
+    q, k, v = _qkv(lp, cfg, kind, h, positions)
     o = L.flash_attention_jnp(q, k, v, causal=True, window=window,
                               softcap=a.softcap)
-    x = x + o.reshape(B, T, -1) @ lp["attn"]["wo"]
-    y, aux = _ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
-    return x + y, aux
+    x = _add(lp, x, o.reshape(B, T, -1) @ lp["attn"]["wo"], "attn", cfg)
+    y, aux = _ffn(lp, _norm_in(lp, x, "ln2", cfg), cfg)
+    return _add(lp, x, y, "ffn", cfg), aux
 
 
 def forward(params, cfg: ModelConfig, tokens, patch_embeds=None):
@@ -145,21 +209,27 @@ def forward(params, cfg: ModelConfig, tokens, patch_embeds=None):
     x = embed_tokens(params, cfg, tokens, patch_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = 0.0
-    for lp, window in zip(params["layers"], params["window"]):
+    for lp, window, kind in zip(params["layers"], params["window"],
+                                cfg.layer_kinds()):
         x, aux_l = checkpoint(_train_layer, lp, window, cfg, x, positions,
-                              use_reentrant=False)
+                              kind, use_reentrant=False)
         aux = aux + aux_l
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def build_kv(cfg: ModelConfig, k, v, *, runtime: str, plan: ZonePlan,
-             total: int, lengths: Optional[torch.Tensor] = None):
+             total: int, lengths: Optional[torch.Tensor] = None,
+             ring: bool = False):
     """One attention layer's serve state from its prompt K/V (B, T, Hkv,
-    hd), post-RoPE: the wave index (retro) or a dense cache of ``total``
+    hd), post-RoPE: the wave index (retro), a ring of the last
+    ``sliding_window`` positions (``ring``) or a dense cache of ``total``
     slots holding the prompt (full). ``lengths``: optional (B,) true
     lengths of right-padded rows."""
     B, T = k.shape[:2]
     dt = torch_dtype(cfg)
+    if ring:
+        return wa.ring_from_prompt(k, v, cfg.attn.sliding_window, dt,
+                                   lengths=lengths)
     if runtime == "retro":
         return prefill_build(k, v, cfg.retro, plan.m_max, dtype=dt,
                              lengths=lengths)
@@ -176,7 +246,8 @@ def build_kv(cfg: ModelConfig, k, v, *, runtime: str, plan: ZonePlan,
 
 class ServeState(NamedTuple):
     """Per-layer KV state of the decode batch: ``WaveState``s (retro
-    runtime) or ``DenseCache``s (full runtime)."""
+    runtime; ``RingCache``s on ring layers) or ``DenseCache``s (full
+    runtime)."""
     kv: List[Any]
 
 
@@ -200,7 +271,8 @@ def prefill(params, cfg: ModelConfig, tokens, patch_embeds=None, *,
     ``patch_embeds``: (B, P, D) vlm patch embeddings of the first P
     positions. Each layer is a device span (``repro_torch.spans``),
     ``prefill.layer``, with children ``prefill.attn`` (the attention) and
-    ``prefill.index`` (``build_kv``)."""
+    ``prefill.index`` (``build_kv``), and ``prefill.moe`` around the share
+    layer's FFN (``moe.scoring="sigmoid"``)."""
     a, retro = cfg.attn, cfg.retro
     x = embed_tokens(params, cfg, tokens, patch_embeds)
     B, T, _ = x.shape
@@ -213,12 +285,11 @@ def prefill(params, cfg: ModelConfig, tokens, patch_embeds=None, *,
     total = cache_len if cache_len is not None else T + gen_headroom
     use_sparse = cfg.sparse_prefill_blocks > 0 and T % 128 == 0
     kv = []
+    kinds, rings = cfg.layer_kinds(), ring_layers(cfg, runtime)
     for i, (lp, window) in enumerate(zip(params["layers"], params["window"])):
         with spans.device("prefill.layer", layer=i):
-            h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-            q, k, v = L.attention_qkv(lp["attn"], h, a.n_heads,
-                                      a.n_kv_heads, a.head_dim, positions,
-                                      a.rope_theta)
+            h = _norm_in(lp, x, "ln1", cfg)
+            q, k, v = _qkv(lp, cfg, kinds[i], h, positions)
             with spans.device("prefill.attn", layer=i):
                 if use_sparse:
                     o = block_sparse_attention(
@@ -229,12 +300,19 @@ def prefill(params, cfg: ModelConfig, tokens, patch_embeds=None, *,
                     o = L.flash_attention_jnp(q, k, v, causal=True,
                                               window=window,
                                               softcap=a.softcap)
-            x = x + o.reshape(B, T, -1) @ lp["attn"]["wo"]
-            h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + _ffn(lp, h, cfg)[0]
+            x = _add(lp, x, o.reshape(B, T, -1) @ lp["attn"]["wo"], "attn",
+                     cfg)
+            h = _norm_in(lp, x, "ln2", cfg)
+            share = "moe" in lp and cfg.moe.share
+            with spans.device("prefill.moe", layer=i) if share \
+                    else nullcontext():
+                y = _ffn(lp, h, cfg)[0]
+            x = _add(lp, x, y, "ffn", cfg)
+            del y           # not held across the next layer's attention
             with spans.device("prefill.index", layer=i):
                 kv.append(build_kv(cfg, k, v, runtime=runtime, plan=plan,
-                                   total=total, lengths=lens))
+                                   total=total, lengths=lens,
+                                   ring=rings[i]))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if lens is None:
         last = x[:, -1]
@@ -264,6 +342,7 @@ def init_prefill_chunk_state(cfg: ModelConfig, B: int, max_ctx: int, *,
     so the finalized state grafts into the shared batch. The full runtime's
     cache holds ``max_ctx + gen_headroom`` slots (it becomes the serve
     state); the retro admission cache only needs the prompt."""
+    refuse_ring(cfg, "chunked admission", runtime)
     a, retro, dt = cfg.attn, cfg.retro, torch_dtype(cfg)
     plan = plan_zones(max_ctx, retro, gen_headroom)
     cache_len = max_ctx if runtime == "retro" else max_ctx + gen_headroom
@@ -341,22 +420,22 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, state: PrefillChunkState,
         pe = torch.gather(patch_embeds, 1, at).to(x.dtype)
         x = torch.where((positions < P)[..., None], pe, x)
     caches, waves = [], []
-    for lp, cache_l, wave_l, window in zip(params["layers"], state.cache,
-                                           state.wave, params["window"]):
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = L.attention_qkv(lp["attn"], h, a.n_heads, a.n_kv_heads,
-                                  a.head_dim, positions, a.rope_theta)
+    for lp, cache_l, wave_l, window, kind in zip(
+            params["layers"], state.cache, state.wave, params["window"],
+            cfg.layer_kinds()):
+        h = _norm_in(lp, x, "ln1", cfg)
+        q, k, v = _qkv(lp, cfg, kind, h, positions)
         cache_l = _cache_append_chunk(cache_l, k, v, clens)
         o = _chunk_attention(q, cache_l, t0, clens, window=window,
                              softcap=a.softcap)
-        x = x + o.reshape(B, C, -1) @ lp["attn"]["wo"]
-        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = _add(lp, x, o.reshape(B, C, -1) @ lp["attn"]["wo"], "attn", cfg)
+        h = _norm_in(lp, x, "ln2", cfg)
         y = _ffn(lp, h, cfg)[0]
         if runtime == "retro":
             wave_l = prefill_append_chunk(wave_l, k, v, retro, clens)
         waves.append(wave_l)
         caches.append(cache_l)
-        x = x + y
+        x = _add(lp, x, y, "ffn", cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     last = torch.clamp(clens - 1, min=0).long()
     x_last = x[torch.arange(B, device=dev), last]
@@ -381,7 +460,8 @@ def decode_step(params, cfg: ModelConfig, state: ServeState, token, *,
                 runtime: str = "retro", plan: ZonePlan,
                 inline_flush: bool = False,
                 active: Optional[torch.Tensor] = None,
-                attn_impl: Optional[str] = None, group=None
+                attn_impl: Optional[str] = None, group=None,
+                moe_counts: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, ServeState]:
     """One generation step. token: (B,) -> logits (B, V) f32.
 
@@ -397,7 +477,10 @@ def decode_step(params, cfg: ModelConfig, state: ServeState, token, *,
     ``torch.distributed`` process group over which the cluster axis of
     every layer's state is sharded (``core.distributed.shard_state``); the
     attention is then ``distributed_wave_attention``, which runs the "jnp"
-    path only, so any other impl raises."""
+    path only, so any other impl raises. A ring layer (``RingCache``)
+    appends in place at its position mod the window and attends exactly.
+    ``moe_counts``: the share layers' int64 (2,) row counters
+    (``moe.share_apply``), added to in place."""
     a, retro = cfg.attn, cfg.retro
     impl = wa.resolve_attn_impl(attn_impl or retro.attn_impl)
     if group is not None:
@@ -405,14 +488,16 @@ def decode_step(params, cfg: ModelConfig, state: ServeState, token, *,
     x = embed_tokens(params, cfg, token)                       # (B, D)
     B = x.shape[0]
     kv = []
-    for lp, lstate, window in zip(params["layers"], state.kv, params["window"]):
+    for lp, lstate, window, kind in zip(params["layers"], state.kv,
+                                        params["window"], cfg.layer_kinds()):
         pos = lstate.length                                    # (B,)
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = L.attention_qkv(lp["attn"], h[:, None, :], a.n_heads,
-                                  a.n_kv_heads, a.head_dim, pos[:, None],
-                                  a.rope_theta)
+        h = _norm_in(lp, x, "ln1", cfg)
+        q, k, v = _qkv(lp, cfg, kind, h[:, None, :], pos[:, None])
         q, k, v = q[:, 0], k[:, 0], v[:, 0]                    # (B, H*, hd)
-        if runtime == "retro":
+        if isinstance(lstate, wa.RingCache):
+            lstate = wa.ring_append(lstate, k, v, active=active)
+            o = wa.ring_attention_decode(q, lstate, softcap=a.softcap)
+        elif runtime == "retro":
             lstate = append_token(lstate, k, v, active=active)
             if group is not None:
                 o = distributed_wave_attention(q, lstate, retro, plan, group,
@@ -428,9 +513,10 @@ def decode_step(params, cfg: ModelConfig, state: ServeState, token, *,
             lstate = wa.dense_cache_append(lstate, k, v, active=active)
             o = wa.full_attention_decode(q, lstate, window=window,
                                          softcap=a.softcap)
-        x = x + o.reshape(B, -1) @ lp["attn"]["wo"]
-        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _ffn(lp, h, cfg)[0]
+        x = _add(lp, x, o.reshape(B, -1) @ lp["attn"]["wo"], "attn", cfg)
+        h = _norm_in(lp, x, "ln2", cfg)
+        x = _add(lp, x, _ffn(lp, h, cfg, step=True, active=active,
+                             counts=moe_counts)[0], "ffn", cfg)
         kv.append(lstate)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, cfg, x), ServeState(kv=kv)
@@ -540,10 +626,9 @@ def offload_decode_rank(lp, window, cfg: ModelConfig, live: Dict, x, *,
     B = x.shape[0]
     lstate = live_wave_state(live)
     pos = lstate.length                                      # (B,)
-    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q, k, v = L.attention_qkv(lp["attn"], h[:, None, :], a.n_heads,
-                              a.n_kv_heads, a.head_dim, pos[:, None],
-                              a.rope_theta)
+    h = _norm_in(lp, x, "ln1", cfg)
+    kind = "l" if window < GLOBAL_WINDOW else "g"
+    q, k, v = _qkv(lp, cfg, kind, h[:, None, :], pos[:, None])
     q, k, v = q[:, 0], k[:, 0], v[:, 0]                      # (B, H*, hd)
     lstate = append_token(lstate, k, v, active=active)
     qg = q.reshape(B, a.n_kv_heads, a.n_heads // a.n_kv_heads, a.head_dim)
@@ -570,9 +655,9 @@ def offload_decode_attend(lp, window, cfg: ModelConfig, live: Dict, x, ctx,
         q, live_wave_state(live), retro, plan, idx_slots, est_logit, cs_e,
         vs_e, kv_src=(cache_k, cache_v, cache_pos), window=window,
         softcap=a.softcap, impl=impl, valid=valid, cover=cover).out
-    x = x + out.reshape(B, -1) @ lp["attn"]["wo"]
-    h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _ffn(lp, h, cfg)[0]
+    x = _add(lp, x, out.reshape(B, -1) @ lp["attn"]["wo"], "attn", cfg)
+    h = _norm_in(lp, x, "ln2", cfg)
+    return _add(lp, x, _ffn(lp, h, cfg, step=True)[0], "ffn", cfg)
 
 
 def offload_flush(cfg: ModelConfig, lives: List[Dict], rows):
@@ -591,13 +676,18 @@ def offload_flush(cfg: ModelConfig, lives: List[Dict], rows):
 
 
 def init_kv_state(cfg: ModelConfig, B: int, seq_len: int, *, runtime: str,
-                  gen_headroom: int, zero_fill: bool, device):
+                  gen_headroom: int, zero_fill: bool, device,
+                  ring: bool = False):
     """One attention layer's zero serve state with the structure a prefill
     of ``seq_len`` tokens gives. ``zero_fill=True`` leaves every per-row
     counter at zero (an all-free continuous batch awaiting per-slot grafts)
-    instead of pretending each row holds a full ``seq_len`` context."""
+    instead of pretending each row holds a full ``seq_len`` context.
+    ``ring``: a ring layer's ``RingCache``."""
     a, retro, dt = cfg.attn, cfg.retro, torch_dtype(cfg)
     full = lambda n: torch.full((B,), n, dtype=torch.int32, device=device)
+    if ring:
+        return wa.init_ring(B, a.n_kv_heads, a.sliding_window, a.head_dim,
+                            dt, device, 0 if zero_fill else seq_len)
     if runtime == "retro":
         plan = plan_zones(seq_len, retro, gen_headroom)
         st = init_wave_state(B, a.n_kv_heads, a.head_dim, plan.m_max, retro,
@@ -618,5 +708,6 @@ def init_serve_state(cfg: ModelConfig, B: int, seq_len: int, *,
     (``init_kv_state`` per layer)."""
     return ServeState(kv=[init_kv_state(cfg, B, seq_len, runtime=runtime,
                                         gen_headroom=gen_headroom,
-                                        zero_fill=zero_fill, device=device)
-                          for _ in range(cfg.n_layers)])
+                                        zero_fill=zero_fill, device=device,
+                                        ring=ring)
+                          for ring in ring_layers(cfg, runtime)])

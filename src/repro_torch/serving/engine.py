@@ -59,7 +59,7 @@ from repro_torch.core.wave_index import local_buffer_size
 from repro_torch.core.zones import plan_zones
 from repro_torch.models import model as M
 from repro_torch.models.transformer import (LIVE_FIELDS, ServeState,
-                                            torch_dtype)
+                                            refuse_ring, torch_dtype)
 from repro_torch.serving.graphs import DecodeGraph, OffloadStage, leaves
 
 
@@ -105,6 +105,12 @@ class ServeMetrics:
     dropped_cluster_steps: int = 0
     # the call's spans (``repro_torch.spans``) when the engine records them
     spans: Optional[spans.Spans] = None
+    # the share layers' rows over the decode steps (``moe.share_apply``):
+    # token-expert pairs routed to the experts held here (active rows), and
+    # rows their fixed-capacity buffers computed; counted on the device in
+    # the captured step, read once at the call's end
+    moe_rows_routed: int = 0
+    moe_rows_computed: int = 0
 
     @property
     def decode_tps(self) -> float:
@@ -832,6 +838,10 @@ class ServeEngine:
         self.max_decode_steps = max_decode_steps
         retro = cfg.retro
         self.offload = retro.offload if offload is None else offload
+        if self.offload:
+            refuse_ring(cfg, "host-offload serving", runtime)
+        if admission == "chunked" and M.supports_chunked_prefill(cfg, runtime):
+            refuse_ring(cfg, "chunked admission", runtime)
         if self.offload and not M.supports_offload(cfg, runtime):
             raise ValueError("host-offload serving requires the retro "
                              f"runtime on an attention family, got "
@@ -868,17 +878,19 @@ class ServeEngine:
             else int(self.cache_frac * m_max)
         return max(1, min(c, m_max))
 
-    def _decode_fn(self, plan):
+    def _decode_fn(self, plan, moe_counts=None):
         """The direct-store decode step of one geometry, as ``DecodeGraph``
         takes it. The step holds no reference to the engine, which holds
         the graph (``last_graph``): no cycle keeps a dropped engine's state
-        alive."""
+        alive. ``moe_counts``: the share layers' row counters, at a fixed
+        address the captured step adds to."""
         params, cfg, rt, impl = self.params, self.cfg, self.runtime, \
             self.attn_impl
 
         def fn(st, tokens, active):
             return M.apply_decode(params, cfg, st, tokens, runtime=rt,
-                                  plan=plan, active=active, attn_impl=impl)
+                                  plan=plan, active=active, attn_impl=impl,
+                                  moe_counts=moe_counts)
         return fn
 
     @_recorded
@@ -931,8 +943,10 @@ class ServeEngine:
         # t + 1 is enqueued, and step t + 2 writes them after that read
         h_ids = [torch.zeros((B,), dtype=torch.int32,
                              pin_memory=dev.type == "cuda") for _ in range(2)]
+        moe_counts = torch.zeros((2,), dtype=torch.int64, device=dev) \
+            if cfg.moe is not None and cfg.moe.share else None
         graph = plane.stage if plane is not None else DecodeGraph(
-            self._decode_fn(plan), self._sample_dev, state,
+            self._decode_fn(plan, moe_counts), self._sample_dev, state,
             tokens_dev, key=(B, max_ctx, self.attn_impl, rt))
         prev: Optional[_Readback] = None    # step t's ids (copy in flight)
         prev_snapshot: List[Optional[Request]] = [None] * B
@@ -1135,6 +1149,9 @@ class ServeEngine:
                 staged[rows] -= cfg.retro.update_segment
         if plane is not None:
             plane.export_stats(metrics)
+        if moe_counts is not None:
+            metrics.moe_rows_routed, metrics.moe_rows_computed = \
+                moe_counts.tolist()  # retrolint: sync(share-layer row counts, once a call)
         self.last_plane = plane             # inspection hooks (tests, smoke)
         self.last_state = state
         self.last_graph = graph

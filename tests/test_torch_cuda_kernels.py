@@ -471,7 +471,7 @@ def test_cuda_flash_attention_routes_covered_calls(cuda):
     assert pa_ops.prefill_attention.launches == before + 1
     assert torch.equal(out, pa_ops.prefill_attention(q, k, v))
     before = pa_ops.prefill_attention.launches
-    plain = [dict(softcap=50.0), dict(window=256.0), dict(causal=False)]
+    plain = [dict(softcap=50.0), dict(window=256.5), dict(causal=False)]
     for kw in plain:
         L.flash_attention_jnp(q, k, v, **{"causal": True, **kw})
     L.flash_attention_jnp(q[..., :64], k[..., :64], v[..., :64])
@@ -480,6 +480,58 @@ def test_cuda_flash_attention_routes_covered_calls(cuda):
         L.flash_attention_jnp(q.requires_grad_(), k, v)
     torch.cuda.synchronize()
     assert pa_ops.prefill_attention.launches == before
+
+
+# (Tq, Hq, Hkv, window): K-EXAONE's sliding layers (W 128) and a wide
+# window (W 4096) at a 16k prompt, G 8; a masking window across a q_offset
+PREFILL_WINDOW_CASES = {
+    "kexaone_w128": (16384, 64, 8, 0, 128),
+    "w4096": (16384, 64, 8, 0, 4096),
+    "w100_q_offset_77": (300, 32, 8, 77, 100),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PREFILL_WINDOW_CASES))
+def test_cuda_prefill_attention_window_matches_twin(cuda, case):
+    """The windowed instantiation against the twin's windowed body: only
+    the keys p - W < j <= p count. The twin (f32 scores a key block at a
+    time for every query) runs on the first and the last 2048 queries of a
+    long prompt, as queries at their offset: the window's growth from the
+    prompt's start and its steady lower edge."""
+    Tq, Hq, Hkv, off, W = PREFILL_WINDOW_CASES[case]
+    q, k, v = _prefill_inputs(cuda, 1, Tq, Hq, Hkv, off, seed=4)
+    out = pa_ops.prefill_attention(q, k, v, q_offset=off, window=W,
+                                   out_dtype=torch.float32)
+    assert torch.isfinite(out).all()
+    n = min(Tq, 2048)
+    for lo in sorted({0, Tq - n}):
+        hi = off + lo + n
+        ref = pa_ops.prefill_attention_plain(
+            q[:, lo:lo + n], k[:, :hi], v[:, :hi], q_offset=off + lo,
+            window=W, out_dtype=torch.float32)
+        err, tol = _prefill_err(out[:, lo:lo + n], ref)
+        assert err <= tol, (lo, err, tol)
+    assert torch.equal(pa_ops.prefill_attention(
+        q, k, v, q_offset=off, window=W, out_dtype=torch.float32), out)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_attention_window_wider_than_the_prompt(cuda):
+    """A window wider than every query-key distance masks nothing: the
+    windowed instantiation gives the unwindowed kernel's bits, and
+    ``flash_attention_jnp`` routes such a window to the unwindowed one;
+    a masking window goes to the windowed one, with its bits."""
+    q, k, v = _prefill_inputs(cuda, 1, 3000, 64, 8, 0, seed=5)
+    plain = pa_ops.prefill_attention(q, k, v, out_dtype=torch.float32)
+    wide = pa_ops.prefill_attention(q, k, v, window=3000 + 17,
+                                    out_dtype=torch.float32)
+    assert torch.equal(wide, plain)
+    assert pa_ops.kernel_window(5000.0, 0, 3000) == 0
+    assert torch.equal(L.flash_attention_jnp(q, k, v, window=5000.0),
+                       plain.bfloat16())
+    assert torch.equal(L.flash_attention_jnp(q, k, v, window=128.0),
+                       pa_ops.prefill_attention(q, k, v, window=128))
 
 
 @pytest.mark.cuda

@@ -97,22 +97,24 @@ def test_repeat_kv_matches_reference():
 
 
 # (kwargs of flash_attention_jnp, input changes) -> whether the CUDA kernel
-# takes the call: causal, no soft cap, a window that masks nothing, bf16 at
-# an instantiated head dim, no gradient
+# takes the call: causal, no soft cap, no window or a whole number of
+# positions, bf16 at an instantiated head dim, no gradient
 ROUTES = {
     "global_sentinel": (dict(window=GLOBAL_WINDOW), {}, True),
     "no_window": (dict(), {}, True),
     # 40 queries from position 1: the farthest query-key distance is 40
     "window_past_every_distance": (dict(window=41.0, q_offset=1), {}, True),
+    # a window that masks: the kernel's windowed instantiation
     "window_at_the_farthest_distance": (dict(window=40.0, q_offset=1), {},
-                                        False),
+                                        True),
     "q_offset": (dict(q_offset=7, window=GLOBAL_WINDOW), {}, True),
     "negative_q_offset": (dict(q_offset=-5), {}, False),
     "tensor_q_offset": (dict(q_offset=torch.tensor(3)), {}, False),
     "tensor_window": (dict(window=torch.tensor(GLOBAL_WINDOW)), {}, False),
     "softcap": (dict(softcap=50.0, window=GLOBAL_WINDOW), {}, False),
     "not_causal": (dict(causal=False), {}, False),
-    "sliding_window": (dict(window=16.0), {}, False),
+    "sliding_window": (dict(window=16.0), {}, True),
+    "fractional_window": (dict(window=16.5), {}, False),
     "hd64": (dict(), dict(hd=64), False),
     "hd256": (dict(), dict(hd=256), False),
     "f32": (dict(), dict(dtype=torch.float32), False),
