@@ -1706,8 +1706,8 @@ def serve_offload(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
     if c.lookups == 0 or c.bytes_over_link == 0 or c.failed_fetches or \
             m.degraded_steps:
         raise AssertionError(f"offload counters {m.cache}")
-    host_bytes = sum(b.kv_host.nbytes for layer in plane.bufs
-                     for row in layer if row is not None for b in row)
+    host_bytes = sum(s.nbytes for layer in plane.layers
+                     for s in layer.stores if s is not None)
     cache_bytes = sum(t.numel() * t.element_size() for ts in
                       (plane.cache_k, plane.cache_v, plane.cache_p)
                       for t in ts)
@@ -1775,22 +1775,23 @@ def _live_copy(state):
 
 def plane_copy(engine, plane, max_ctx):
     """A new offload plane of ``engine`` (its current ``attn_impl``, its
-    own stage, not captured) holding a copy of ``plane``'s device block
-    caches and a deep copy of every other field of ``plane`` (wave buffers,
-    transport, queued admissions, counters, in one copy, so what they share
-    stays shared); the host stores, which a decode step only reads, and the
-    config are shared with ``plane``."""
+    own stage and pinned stagings, not captured) holding a copy of
+    ``plane``'s device block caches and a deep copy of every other field of
+    ``plane`` (wave buffers, transport, queued admissions with their rows,
+    counters, in one copy, so what they share stays shared); the host
+    stores, which a decode step only reads, and the config are shared with
+    ``plane``."""
     import copy
     from repro_torch.serving.engine import _OffloadPlane
     new = _OffloadPlane(engine, plane.B, max_ctx)
-    memo = {id(b.kv_host): b.kv_host for layer in plane.bufs
-            for row in layer if row is not None for b in row}
+    memo = {id(s): s for layer in plane.layers
+            for s in layer.stores if s is not None}
     memo[id(plane.cfg)] = plane.cfg
-    own = ("stage", "cache_k", "cache_v", "cache_p")
+    caches = ("cache_k", "cache_v", "cache_p")
     for name, value in vars(plane).items():
-        if name not in own:
+        if name not in ("stage", "h_rows", "host_rows") + caches:
             setattr(new, name, copy.deepcopy(value, memo))
-    for name in own[1:]:
+    for name in caches:
         for t, u in zip(getattr(new, name), getattr(plane, name)):
             t.copy_(u)
     return new

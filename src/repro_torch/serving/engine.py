@@ -31,10 +31,11 @@ completion is detected one step late (the speculative extra token of a
 finished request is dropped). Staging-buffer flushes are per-row masked.
 
 Host-offload mode (``offload=True``, paper Sec. 4.3): the cluster payload
-stores live on the host behind per-(layer, slot, kv-head) ``WaveBuffer``s,
-and decode attention reads a per-layer device block cache through cache-slot
-ids: hits from the cache, misses fetched from the host into a per-step
-staging tail, cache admissions deferred off the hot path. The decode loop
+stores live on the host behind one ``WaveBufferBatch`` per layer (the
+wave buffers of every slot and kv head, as stacked arrays), and decode
+attention reads a per-layer device block cache through cache-slot ids:
+hits from the cache, misses fetched from the host into a per-step staging
+tail, cache admissions deferred off the hot path. The decode loop
 then reads the retrieved ids back once per layer (the paper's CPU control
 plane), between the replays of the layer pieces. See ``_OffloadPlane``.
 """
@@ -52,9 +53,9 @@ import torch
 from repro_torch import resolve_device, spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import resolve_attn_impl
-from repro_torch.core.wave_buffer import (BufferStats, FatalTransportError,
-                                          FaultProfile, FaultyTransport,
-                                          LinkTransport, WaveBuffer)
+from repro_torch.core.wave_batch import WaveBufferBatch
+from repro_torch.core.wave_buffer import (BufferStats, FaultProfile,
+                                          FaultyTransport, LinkTransport)
 from repro_torch.core.wave_index import local_buffer_size
 from repro_torch.core.zones import plan_zones
 from repro_torch.models import model as M
@@ -434,21 +435,25 @@ def _pack(k, v, p):
 class _OffloadPlane:
     """Host control plane of one offload ``serve`` call (paper Sec. 4.3).
 
-    The cluster PAYLOAD stores live on the host, one ``WaveBuffer`` per
-    (layer, slot, kv-head) row over packed f32 payload rows ``[K | V | pos]``
-    (the reference's layout: exact for bf16/f32 stores and integer
-    positions, so cache placement is bit-transparent). The device keeps, per
-    layer, a block cache of ``C + r + 1`` slots: slots [0, C) mirror each
-    row's ``WaveBuffer.cache``, the tail r slots stage the step's misses and
-    the last is a dead slot that only padded writes reach. Each decode step
-    runs per layer:
+    The cluster PAYLOAD stores live on the host over packed f32 payload
+    rows ``[K | V | pos]`` (the reference's layout: exact for bf16/f32
+    stores and integer positions, so cache placement is bit-transparent),
+    behind one ``WaveBufferBatch`` per layer: the wave buffers of every
+    (slot, kv-head) row as stacked arrays, translated and drained for the
+    whole layer at once. The device keeps, per layer, a block cache of
+    ``C + r + 1`` slots: slots [0, C) hold each row's cached clusters (the
+    only copy: the host keeps no mirror), the tail r slots stage the step's
+    misses and the last is a dead slot that only padded writes reach. Each
+    decode step runs per layer:
 
       rank (device) -> id readback -> translate ids through the mapping
       tables (hits -> cache slots, misses -> staging slots, miss payloads
-      fetched from the host store) -> cache update (device: the previous
-      step's deferred admissions + this step's misses) -> attend (device,
-      slot-addressed) -> ``apply_updates`` (host, off the hot path; the
-      admissions reach the device cache at the next step's cache update).
+      gathered from the host stores straight into the layer's pinned
+      staging) -> cache update (device: the previous step's deferred
+      admissions + this step's misses) -> attend (device, slot-addressed)
+      -> drain (host, off the hot path: victims chosen, tables updated;
+      the admitted rows reach the device cache at the next step's cache
+      update).
 
     Layer-pipelined as in the reference: right after layer l's attend is
     enqueued, layer l+1's rank is enqueued and its id copy started (a pinned
@@ -470,8 +475,19 @@ class _OffloadPlane:
     and per layer ``readback_ids`` (the id wait), ``translate``, ``stage``
     (the next piece's inputs), ``launch`` (a replay, or the eager enqueue;
     piece 0 at layer -1) and ``drain_admissions``; ``admit_slot``;
-    ``offload_flush`` and ``host_flush``. ``counts`` holds the steps and the
-    bytes copied to the device.
+    ``offload_flush`` and ``host_flush``. ``counts`` holds the steps, the
+    bytes copied to the device, and the fresh miss rows fetched by the
+    layer-wide gather (``gathered_rows``) and one transport ``fetch`` at a
+    time (``per_miss_rows``: a transport other than the production one).
+
+    A layer's fetched rows stay in its own pinned staging until the next
+    step's cache update has sent its admissions. Each layer has two, used
+    by alternate steps: the copies out of one (its misses at its own step's
+    cache update, its admissions at the next step's) are enqueued before
+    the layer's rank two steps on, whose ids the host waits for before it
+    gathers into that staging again. Admissions that are the staging's
+    first k rows, in order (every fetched row fresh and admitted), are sent
+    from there; others are first copied out of it.
     """
 
     def trace(self, op: str, layer: int, kind: str, step: int,
@@ -497,13 +513,6 @@ class _OffloadPlane:
         self.cache_p = [torch.full((B, self.H, C + r + 1, cap), -1,
                                    dtype=torch.int32, device=dev)
                         for _ in range(self.L)]
-        # per (layer, slot, head) host buffer; None until the slot is admitted
-        self.bufs: List[List[Optional[List[WaveBuffer]]]] = [
-            [None] * B for _ in range(self.L)]
-        # per-layer queued device mirror of deferred admissions, as host
-        # ((3, n) [row, head, slot] ids, (n, D) rows); None = nothing queued
-        self.pending_adm: List[Optional[Tuple[np.ndarray, np.ndarray]]] = \
-            [None] * self.L
         self.ncl = np.zeros(B, np.int64)    # host mirror of n_clusters
         self.retired = BufferStats()        # stats of replaced slot caches
         self._step = -1                     # schedule epoch for trace events
@@ -519,7 +528,8 @@ class _OffloadPlane:
         self.degraded_steps = 0             # steps with >= 1 masked cluster
         self.dropped_cluster_steps = 0      # cluster-step masked count
         self.failed_slots: Dict[int, str] = {}   # slot -> fatal fault message
-        self.counts = dict(steps=0, h2d_bytes=0)
+        self.counts = dict(steps=0, h2d_bytes=0, gathered_rows=0,
+                           per_miss_rows=0)
         self.cfg = cfg
         self._flush = M.offload_decode_fns(cfg)[-1]
         self.stage = OffloadStage(
@@ -527,6 +537,22 @@ class _OffloadPlane:
             (self.cache_k, self.cache_v, self.cache_p), C,
             sample=engine._sample_dev,
             key=(B, max_ctx, C, r, engine.attn_impl))
+        D = 2 * cap * cfg.head_dim + cap
+        self.layers = [WaveBufferBatch(
+            B, self.H, self.M, D, C, policy=self.policy,
+            transport=self.transport, max_retries=self.fetch_retries,
+            backoff_s=self.fetch_backoff_s) for _ in range(self.L)]
+        # per layer, two (N, D) pinned stagings of fetched rows, used by
+        # alternate steps (see the class docstring); ``host_rows`` is their
+        # numpy view
+        self.h_rows = torch.empty((self.L, 2, self.stage.N, D),
+                                  dtype=torch.float32,
+                                  pin_memory=dev.type == "cuda")
+        self.host_rows = self.h_rows.numpy()
+        # per-layer queued device mirror of deferred admissions, as host
+        # ((3, n) [row, head, slot] ids, (n, D) rows); None = nothing queued
+        self.pending_adm: List[Optional[Tuple[np.ndarray, torch.Tensor]]] = \
+            [None] * self.L
 
     def _h2d(self, a: np.ndarray) -> torch.Tensor:
         """Host array -> device, counted in ``counts["h2d_bytes"]``."""
@@ -548,25 +574,24 @@ class _OffloadPlane:
                 host = _pack(  # retrolint: sync(store offload)
                     st.k_store[0], st.v_store[0], st.pos_store[0]) \
                     .cpu().numpy()                              # (H, M, D)
-                old = self.bufs[l][i]
+                old = self.layers[l].admit(i, host)
                 if old is not None:
-                    for buf in old:
-                        self.retired.merge(buf.stats)
-                self.bufs[l][i] = [
-                    WaveBuffer(host[h], cache_clusters=self.C,
-                               policy=self.policy, transport=self.transport,
-                               max_retries=self.fetch_retries,
-                               backoff_s=self.fetch_backoff_s)
-                    for h in range(self.H)]
-                # drop queued admissions aimed at the replaced slot's caches
-                if self.pending_adm[l] is not None:
-                    ids, rows = self.pending_adm[l]
-                    keep = ids[0] != i
-                    self.pending_adm[l] = (ids[:, keep], rows[keep])
+                    self.retired.merge(old)
+                self._drop_queued(l, i)
+
+    def _drop_queued(self, l: int, i: int) -> None:
+        """Drop layer ``l``'s queued admissions aimed at slot ``i``'s
+        replaced caches."""
+        if self.pending_adm[l] is not None:
+            ids, rows = self.pending_adm[l]
+            keep = ids[0] != i
+            self.pending_adm[l] = (ids[:, keep],
+                                   rows[torch.from_numpy(keep)])
 
     # ------------------------------------------------------- control plane
     def _translate(self, l, ids, active):
-        """Cluster ids -> cache-slot ids; fetch the miss payloads.
+        """Cluster ids -> cache-slot ids; the miss payloads gathered into
+        the layer's pinned staging (``WaveBufferBatch.translate``).
 
         Ids of not-yet-live clusters (>= the row's ``n_clusters`` mirror)
         never touch the wave buffer: fetching them would admit an
@@ -578,72 +603,57 @@ class _OffloadPlane:
         holds the slot ids and the validity mask (0 marks a live cluster
         whose fetch failed its retries or deadline this step; the attend
         covers its mass with the estimation zone); ``miss`` is ``((3, n)
-        [row, head, staging slot], (n, D) payload rows)`` or None. A
-        :class:`FatalTransportError` marks the whole slot failed
+        [row, head, staging slot], the staging's first n rows)`` or None.
+        A :class:`FatalTransportError` marks the whole slot failed
         (``failed_slots``); the serve loop finishes that request with
         ``status="error"``.
         """
         B, H, r = ids.shape
         sv = np.zeros((2, B, H, r), np.int32)
-        idx_slots, valid = sv[0], sv[1]
-        valid[:] = 1
+        sv[1] = 1
         if r == 0:      # steady-zone-only plan: attend pads its own dead slot
             return sv, None
+        layer = self.layers[l]
+        rows = active & layer.admitted
+        rows[list(self.failed_slots)] = False
+        par = self.counts["steps"] % 2
+        tr = layer.translate(ids, rows, self.ncl, self.fetch_deadline_s,
+                             self.host_rows[l, par])
+        # a visited buffer's ids default to their staging slots. A fatal
+        # fault kills only its row: the walk skips its later heads (slots
+        # 0), its staged defaults self-mask, and the request finishes before
+        # its token is harvested
         stage = self.C + np.arange(r)
-        mb, mh, ms, rows = [], [], [], []
-        for b in range(B):
-            if not active[b] or self.bufs[l][b] is None \
-                    or b in self.failed_slots:
-                continue
-            dead = ids[b] >= self.ncl[b]                    # (H, r)
-            for h in range(H):
-                buf = self.bufs[l][b][h]
-                live_j = np.where(~dead[h])[0]
-                idx_slots[b, h] = stage                     # default: staging
-                if len(live_j) == 0:
-                    continue
-                try:
-                    slot, hit, payload, ok = buf.translate(
-                        ids[b, h, live_j], deadline_s=self.fetch_deadline_s)
-                except FatalTransportError as e:
-                    # only this slot dies; its staged defaults self-mask and
-                    # the request finishes before its token is harvested
-                    self.failed_slots[b] = str(e)
-                    break
-                idx_slots[b, h, live_j] = np.where(hit, slot, stage[live_j])
-                valid[b, h, live_j[~ok]] = 0
-                self.dropped_cluster_steps += int((~ok).sum())
-                fetched = ~hit & ok
-                if fetched.any():
-                    j = live_j[fetched]
-                    mb.append(np.full(len(j), b))
-                    mh.append(np.full(len(j), h))
-                    ms.append(stage[j])
-                    rows.append(payload[fetched])
-        if not rows:
+        sv[0] = np.where(tr.slot >= 0, tr.slot,
+                         np.where(tr.visited[..., None], stage, 0))
+        sv[1] = ~tr.failed
+        self.dropped_cluster_steps += int(tr.failed.sum())
+        self.failed_slots.update(tr.fatal)
+        self.counts["gathered_rows"] += tr.gathered
+        self.counts["per_miss_rows"] += tr.per_miss
+        if not tr.n:
             return sv, None
-        return sv, (np.stack([np.concatenate(mb), np.concatenate(mh),
-                              np.concatenate(ms)]), np.concatenate(rows))
+        mb, mh, mj = np.nonzero(tr.fetched)
+        return sv, (np.stack([mb, mh, stage[mj]]),
+                    self.h_rows[l, par, :tr.n])
 
-    def _drain_admissions(self, l, active) -> bool:
-        """Apply deferred WaveBuffer admissions (off the attend hot path) and
-        queue their device-cache mirror for the next step's cache update. A
-        warm step with no admission queues None, and the next update skips
-        the mirror. Returns whether anything was queued."""
-        ab, ah, a_s, rows = [], [], [], []
-        for b in range(self.B):
-            if not active[b] or self.bufs[l][b] is None:
-                continue
-            for h in range(self.H):
-                for vict, _ids, payload in self.bufs[l][b][h].apply_updates():
-                    ab.append(np.full(len(vict), b))
-                    ah.append(np.full(len(vict), h))
-                    a_s.append(vict)
-                    rows.append(payload)
-        self.pending_adm[l] = None if not rows else (
-            np.stack([np.concatenate(ab), np.concatenate(ah),
-                      np.concatenate(a_s)]), np.concatenate(rows))
-        return self.pending_adm[l] is not None
+    def _drain_admissions(self, l) -> bool:
+        """Apply the layer's deferred admissions (off the attend hot path)
+        and queue their device-cache mirror for the next step's cache
+        update: the staging's first rows where they are its first k, else
+        a copy of them. A warm step with no admission queues None, and the
+        next update skips the mirror. Returns whether anything was
+        queued."""
+        adm = self.layers[l].drain()
+        if adm is None:
+            self.pending_adm[l] = None
+            return False
+        par, k = self.counts["steps"] % 2, len(adm.src)
+        rows = self.h_rows[l, par, :k] if (adm.src == np.arange(k)).all() \
+            else torch.from_numpy(self.host_rows[l, par][adm.src])
+        self.pending_adm[l] = (np.stack([adm.rows, adm.heads, adm.slots]),
+                               rows)
+        return True
 
     # ------------------------------------------------------------- decode
     def decode_step(self, state, tokens_dev, active):
@@ -691,7 +701,7 @@ class _OffloadPlane:
                     self.trace("readback_start", l + 1, "host", t)
                 # off the hot path
                 with spans.host("drain_admissions", layer=l):
-                    queued = self._drain_admissions(l, active)
+                    queued = self._drain_admissions(l)
                 self.trace("drain_admissions", l, "host", t, queued=queued)
         # (run with the last layer's piece)
         self.trace("unembed_logits", -1, "dispatch", t)
@@ -722,10 +732,8 @@ class _OffloadPlane:
             for j, b in enumerate(flushed):
                 off = int(self.ncl[b])
                 for l in range(self.L):
-                    if self.bufs[l][b] is None:
-                        continue
-                    for h in range(self.H):
-                        self.bufs[l][b][h].store_rows(off, blocks[l, j, h])
+                    if self.layers[l].stores[b] is not None:
+                        self.layers[l].store_rows(b, off, blocks[l, j])
                 self.ncl[b] += k_new
         return ServeState(kv=[st._replace(**nl)
                               for st, nl in zip(kv, new_lives)])
@@ -733,11 +741,8 @@ class _OffloadPlane:
     # ------------------------------------------------------------- stats
     def export_stats(self, metrics: "ServeMetrics") -> None:
         metrics.cache.merge(self.retired)
-        for per_layer in self.bufs:
-            for row in per_layer:
-                if row is not None:
-                    for buf in row:
-                        metrics.cache.merge(buf.stats)
+        for layer in self.layers:
+            metrics.cache.merge(layer.total())
         metrics.degraded_steps += self.degraded_steps
         metrics.dropped_cluster_steps += self.dropped_cluster_steps
 

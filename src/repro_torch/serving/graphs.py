@@ -233,10 +233,11 @@ class OffloadStage:
 
     Fixed addresses: the hidden state, the rank's outputs (query,
     estimation inputs, retrieval cover: one set, shared by the layers), the
-    active mask, one pinned host buffer for the retrieved ids, and the
-    staging buffers (device and pinned host) of the
-    (2, B, H, r) slot/valid ids, the padded (3, N) admission and miss ids
-    and the (N, D) admission and miss rows, N = B·H·r. The state (its live
+    active mask, one pinned host buffer for the retrieved ids, the staging
+    buffers (device and pinned host) of the (2, B, H, r) slot/valid ids and
+    the padded (3, N) admission and miss ids, and the device's (2, N, D)
+    admission and miss rows, N = B·H·r (their host rows are the caller's:
+    ``load``). The state (its live
     fields), the block caches and the token buffer are the caller's, bound
     by ``bind`` and checked to keep their addresses once captured; a rank
     half that rebinds a live field raises. The logits and ids, which no
@@ -282,7 +283,6 @@ class OffloadStage:
         self.ints = torch.zeros((8 * N,), dtype=torch.int32, device=dev)
         self.h_ints = host((8 * N,), torch.int32)
         self.rows = torch.zeros((2, N, D), dtype=torch.float32, device=dev)
-        self.h_rows = host((2, N, D), torch.float32)
         self.h_ids = host(self.shape, torch.int64)
         self.x = self.ctx = self.logits = self.ids = None   # warm-up allocs
         self.state = self.tokens = self.lives = None
@@ -298,7 +298,7 @@ class OffloadStage:
         state = self.state if state is None else state
         tokens = self.tokens if tokens is None else tokens
         own = [self.active, self.h_active, self.ints, self.h_ints, self.rows,
-               self.h_rows, self.h_ids, self.x,
+               self.h_ids, self.x,
                *(self.ctx or ()), tokens,
                *self.cache_k, *self.cache_v, *self.cache_p]
         return state_addresses(state) + tuple(
@@ -399,37 +399,34 @@ class OffloadStage:
             self.event.synchronize()  # retrolint: sync(per-layer id readback)
         return self.h_ids.numpy()  # retrolint: sync(the awaited ids)
 
-    def _pad(self, ids: np.ndarray, rows: np.ndarray, src) -> int:
-        """``src`` ((3, n) ids, (n, D) rows) or None into the (3, N) and
-        (N, D) host staging; the entries past n name the dead slot."""
-        ids[:2] = 0
-        ids[2] = self.dead
-        if src is None:
-            return 0
-        n = src[0].shape[1]
-        if n > self.N:
-            raise RuntimeError(f"{n} rows for a staging of {self.N}")
-        ids[:, :n] = src[0]
-        rows[:n] = src[1]
-        return n
-
     def load(self, slots_valid: np.ndarray, adm, miss) -> int:
         """Stage one layer's inputs for the next piece: the (2, B, H, r)
         slot ids and validity, the deferred admissions and the fetched
-        misses (each ((3, n) [row, head, slot] ids, (n, D) rows) or None).
-        The ids are copied whole, the rows as far as they are filled.
-        Returns the bytes copied to the device."""
+        misses (each ((3, n) [row, head, slot] ids, (n, D) host rows) or
+        None; the rows are copied from where they lie, which the caller
+        keeps until the copy is done, pinned on the card). The ids are copied
+        whole, padded with entries that name the dead slot, the rows as far
+        as they are filled. Returns the bytes copied to the device."""
         N = self.N
-        ints, rows = self.h_ints.numpy(), self.h_rows.numpy()
+        ints = self.h_ints.numpy()
         ints[:2 * N] = slots_valid.reshape(-1)
-        counts = (self._pad(ints[2 * N:5 * N].reshape(3, N), rows[0], adm),
-                  self._pad(ints[5 * N:].reshape(3, N), rows[1], miss))
+        srcs = (adm, miss)
+        for i, src in enumerate(srcs):
+            ids = ints[(2 + 3 * i) * N:(5 + 3 * i) * N].reshape(3, N)
+            ids[:2] = 0
+            ids[2] = self.dead
+            if src is not None:
+                n = src[0].shape[1]
+                if n > N:
+                    raise RuntimeError(f"{n} rows for a staging of {N}")
+                ids[:, :n] = src[0]
         self.ints.copy_(self.h_ints, non_blocking=True)
         nbytes = self.h_ints.numel() * 4
-        for i, n in enumerate(counts):
-            if n:
-                self.rows[i, :n].copy_(self.h_rows[i, :n], non_blocking=True)
-                nbytes += n * rows.shape[2] * 4
+        for i, src in enumerate(srcs):
+            if src is not None and src[0].shape[1]:
+                rows = torch.as_tensor(src[1])
+                self.rows[i, :len(rows)].copy_(rows, non_blocking=True)
+                nbytes += rows.numel() * 4
         return nbytes
 
     def capture_pieces(self) -> None:

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.configs import gemma2_2b
 from repro_torch.core import attention as PA
+from repro_torch.core.wave_buffer import LinkTransport, TransientFault
 from repro_torch.core.wave_index import WaveState, flush_segment_offload
 from repro_torch.core.zones import ZonePlan, plan_zones
 from repro_torch.interop import (params_from_numpy, tensor_from_numpy,
@@ -163,17 +164,26 @@ def test_offload_serve_tokens_equal_direct(models, case):
 # offload decode against the direct decode, on one admitted two-row state
 # ---------------------------------------------------------------------------
 
-def _fail_first_fetch(plane, slot):
-    """Every translate of ``slot``'s buffers reports its first live id's
-    fetch as failed: that cluster is masked out and covered each step."""
-    for per_layer in plane.bufs:
-        for buf in per_layer[slot]:
-            def translate(ids, _orig=buf.translate, **kw):
-                slot_ids, hit, payload, ok = _orig(ids, **kw)
-                ok = ok.copy()
-                ok[0] = False
-                return slot_ids, hit, payload, ok
-            buf.translate = translate
+class _FailSlot(LinkTransport):
+    """Every fetch attempt from one slot's stores fails (a transient
+    fault); other slots' fetches read the store as the production
+    transport does."""
+
+    def __init__(self, stores):
+        self.stores = stores
+
+    def fetch(self, store, cid):
+        if any(np.shares_memory(store, s) for s in self.stores):
+            raise TransientFault(f"cluster {cid}")
+        return super().fetch(store, cid)
+
+
+def _fail_slot_fetches(plane, slot):
+    """Every fetch of ``slot``'s live clusters fails, every layer and step:
+    none is admitted, so each one is masked out and covered each step."""
+    fail = _FailSlot([layer.stores[slot] for layer in plane.layers])
+    for layer in plane.layers:
+        layer.transport = fail
 
 
 def _offload_vs_direct(cfg, params, impl, device, steps=6, fault=None,
@@ -182,7 +192,7 @@ def _offload_vs_direct(cfg, params, impl, device, steps=6, fault=None,
     copies of the state the serve left: through ``apply_decode`` and through
     an offload plane whose rows were admitted from that state. Row 1 holds
     one cluster, so its ranking returns dead ids (staged, empty).
-    ``fail_slot``: that slot's first live fetch fails every layer and step.
+    ``fail_slot``: that slot's fetches fail every layer and step.
     Returns the two logit sequences and the plane."""
     eng = ServeEngine(cfg, params, gen_headroom=HEADROOM, max_context=S,
                       prefill_chunk=CHUNK, attn_impl=impl, device=device,
@@ -211,7 +221,7 @@ def _offload_vs_direct(cfg, params, impl, device, steps=6, fault=None,
         plane.admit_slot(i, ServeState(kv=[
             WaveState(*(t[i:i + 1].clone() for t in w)) for w in st.kv]))
     if fail_slot is not None:
-        _fail_first_fetch(plane, fail_slot)
+        _fail_slot_fetches(plane, fail_slot)
     plan = plan_zones(S, cfg.retro, HEADROOM)
     out_d, out_o = [], []
     with torch.inference_mode():
@@ -239,8 +249,7 @@ def test_offload_decode_bit_identical_to_direct(models, impl):
     direct, off, plane = _offload_vs_direct(cfg, params, impl, "cpu")
     torch.testing.assert_close(off, direct, **TOL)
     assert plane.counts["steps"] == 7 and plane.degraded_steps == 0
-    stats = [b.stats for row in plane.bufs for bufs in row for b in bufs]
-    assert sum(s.lookups for s in stats) > 0
+    assert sum(layer.total().lookups for layer in plane.layers) > 0
 
 
 @pytest.mark.parametrize("impl", PA.ATTN_IMPLS)

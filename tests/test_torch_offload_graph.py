@@ -159,7 +159,6 @@ def test_padded_cache_update_matches_reference(case, dtype):
     assert (stage.N, stage.dead, stage.rows.shape[2]) == (N, C + R, D)
     junk = np.random.default_rng(1).standard_normal((2, N, D)) * 1e3
     stage.rows.copy_(torch.from_numpy(junk))        # a previous step's rows
-    stage.h_rows.copy_(torch.from_numpy(-junk))
     stage.load(np.zeros((2, B, H, R), np.int32), adm, miss_rows)
     stage.cache_update(0)
     for got, want in zip((c[0] for c in caches), ref):
