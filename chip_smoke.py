@@ -1363,7 +1363,7 @@ def replay_vs_eager(graph, restore, act, steps, tag, want_attn, name):
 
 
 def compiled_step_check(params, cfg, prompt_lens=(8192, 6000), steps=8,
-                        seed=11, device="cuda",
+                        seed=11, device="cuda", gen_headroom=1024,
                         paths=(("retro", ("fused", "pallas", "jnp")),
                                ("full", ("jnp",)))):
     """Phase 10: full-width decode states from blocking prefills of
@@ -1379,8 +1379,7 @@ def compiled_step_check(params, cfg, prompt_lens=(8192, 6000), steps=8,
     from repro_torch.core.zones import plan_zones
     from repro_torch.models import model as M
     from repro_torch.models.transformer import HOT_FIELDS
-    from repro_torch.serving.engine import ServeEngine
-    from repro_torch.serving.graphs import DecodeGraph
+    from repro_torch.serving.engine import Sampler, _DirectStore
     rng = np.random.default_rng(seed)
     S = max(prompt_lens)
     toks = np.zeros((len(prompt_lens), S), np.int64)
@@ -1390,15 +1389,14 @@ def compiled_step_check(params, cfg, prompt_lens=(8192, 6000), steps=8,
     act = np.ones(B, bool)
     out = {}
     for runtime, impls in paths:
-        eng = ServeEngine(cfg, params, runtime=runtime, device=device)
-        plan = plan_zones(S, cfg.retro, eng.gen_headroom)
+        plan = plan_zones(S, cfg.retro, gen_headroom)
         with torch.inference_mode():
             _, state = M.apply_prefill(
                 params, cfg, {"tokens": torch.from_numpy(toks).to(device)},
-                runtime=runtime, plan=plan, gen_headroom=eng.gen_headroom,
+                runtime=runtime, plan=plan, gen_headroom=gen_headroom,
                 lengths=torch.tensor(prompt_lens, dtype=torch.int32,
                                      device=device),
-                cache_len=S + eng.gen_headroom)
+                cache_len=S + gen_headroom)
         hot = HOT_FIELDS if runtime == "retro" else ("k", "v", "length")
         saved = [{f: getattr(st, f).clone() for f in hot} for st in state.kv]
         first = torch.tensor([1, 2], dtype=torch.int32, device=device)[:B]
@@ -1410,10 +1408,10 @@ def compiled_step_check(params, cfg, prompt_lens=(8192, 6000), steps=8,
             graph.tokens.copy_(first)
 
         for impl in impls:
-            eng.attn_impl = impl
-            graph = DecodeGraph(eng._decode_fn(plan), eng._sample_dev,
-                                state, first.clone(),
-                                key=(B, S, impl, runtime))
+            graph = _DirectStore(cfg, params, plan, state, first.clone(),
+                                 Sampler(device=device), runtime=runtime,
+                                 attn_impl=impl,
+                                 key=(B, S, impl, runtime)).graph
             name = "full" if runtime == "full" else impl
             tag = KERNEL_TAGS.get(IMPL_KERNEL.get(impl)) \
                 if runtime == "retro" else None
@@ -1422,7 +1420,7 @@ def compiled_step_check(params, cfg, prompt_lens=(8192, 6000), steps=8,
             out[name]["attention_kernel"] = IMPL_KERNEL.get(impl) \
                 if runtime == "retro" else None
             del graph
-        del state, saved, eng
+        del state, saved
         torch.cuda.empty_cache()
     return out
 
@@ -1440,7 +1438,8 @@ def family_compiled_check(engine, max_ctx, impls, steps=8):
     import numpy as np
     import torch
     from repro_torch.core.zones import plan_zones
-    from repro_torch.serving.graphs import DecodeGraph, leaves
+    from repro_torch.serving.engine import Sampler, _DirectStore
+    from repro_torch.serving.graphs import leaves
     cfg, state, runtime = engine.cfg, engine.last_state, engine.runtime
     B = engine.last_graph.tokens.shape[0]
     act = np.ones(B, bool)
@@ -1459,10 +1458,10 @@ def family_compiled_check(engine, max_ctx, impls, steps=8):
     n_attn = len(attn_kinds(cfg))
     out = {}
     for impl in impls:
-        engine.attn_impl = impl
-        graph = DecodeGraph(engine._decode_fn(plan), engine._sample_dev,
-                            state, first.clone(),
-                            key=(B, max_ctx, impl, runtime))
+        graph = _DirectStore(cfg, engine.params, plan, state, first.clone(),
+                             Sampler(device=engine.device), runtime=runtime,
+                             attn_impl=impl,
+                             key=(B, max_ctx, impl, runtime)).graph
         name = "full" if runtime == "full" else impl
         tag = KERNEL_TAGS.get(IMPL_KERNEL.get(impl)) \
             if runtime == "retro" and n_attn else None
@@ -1677,7 +1676,8 @@ def serve_offload(cfg, prompt_lens, new_tokens, *, attn_impl="fused",
             raise AssertionError(f"offload request: {len(r.out_tokens)}/"
                                  f"{r.max_new_tokens} tokens ({r.status})")
     plan = plan_zones(max(prompt_lens), cfg.retro, engine.gen_headroom)
-    want_C = max(1, min(int(engine.cache_frac * plan.m_max), plan.m_max))
+    want_C = max(1, min(int(engine.placement.cache_frac * plan.m_max),
+                        plan.m_max))
     if (plane.M, plane.r, plane.C) != (plan.m_max, plan.r, want_C):
         raise AssertionError(f"plane sizes M {plane.M} r {plane.r} C "
                              f"{plane.C}")
@@ -1782,8 +1782,13 @@ def plane_copy(engine, plane, max_ctx):
     stores, which a decode step only reads, and the config are shared with
     ``plane``."""
     import copy
+    from repro_torch.core.zones import plan_zones
     from repro_torch.serving.engine import _OffloadPlane
-    new = _OffloadPlane(engine, plane.B, max_ctx)
+    new = _OffloadPlane(engine.cfg, engine.params,
+                        plan_zones(max_ctx, engine.cfg.retro,
+                                   engine.gen_headroom), plane.B, max_ctx,
+                        attn_impl=engine.attn_impl, sample=plane.stage.sample,
+                        placement=engine.placement, device=engine.device)
     memo = {id(s): s for layer in plane.layers
             for s in layer.stores if s is not None}
     memo[id(plane.cfg)] = plane.cfg
@@ -1841,7 +1846,7 @@ def offload_vs_direct(engine, max_ctx, steps=4):
             a, direct = M.apply_decode(engine.params, cfg, direct, tok,
                                        plan=plan, active=act,
                                        attn_impl=engine.attn_impl)
-            b, off = plane.decode_step(off, tokens, active)
+            b, _ = plane.step(off, tokens, active)
             if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
                 raise AssertionError("offload/direct logits not finite")
             d = (a - b).abs()
@@ -1867,7 +1872,7 @@ OFFLOAD_TIMES = (("id_wait_ms", "readback_ids"), ("translate_ms", "translate"),
 
 def offload_step_stats(plane, state, tokens, steps=8):
     """Where one offload decode step's time goes (both slots decoding):
-    host time until ``decode_step`` returns, split by the plane's spans into
+    host time until ``step`` returns, split by the plane's spans into
     the id waits, the translate, the staging of the pieces' inputs (pinned
     writes and copies to the device), the launch of the pieces (replays, or
     the eager enqueue) and the drain, the rest being glue; the synced wall;
@@ -1878,21 +1883,21 @@ def offload_step_stats(plane, state, tokens, steps=8):
     from repro_torch import spans
     active = np.ones(plane.B, bool)
     for _ in range(2):
-        plane.decode_step(state, tokens, active)
+        plane.step(state, tokens, active)
     torch.cuda.synchronize()
     h2d_before = plane.counts["h2d_bytes"]
     host, wall = [], []
     with spans.recording(plane.dev) as rec:
         for _ in range(steps):
             t0 = time.perf_counter()
-            plane.decode_step(state, tokens, active)
+            plane.step(state, tokens, active)
             host.append(time.perf_counter() - t0)
             torch.cuda.synchronize()
             wall.append(time.perf_counter() - t0)
     per = {k: rec.seconds(k) / steps for _, k in OFFLOAD_TIMES}
     per["h2d_bytes"] = (plane.counts["h2d_bytes"] - h2d_before) / steps
     rows, prof_wall = _profile_rows(
-        lambda: plane.decode_step(state, tokens, active), steps)
+        lambda: plane.step(state, tokens, active), steps)
     busy_s = sum(r[0] for r in rows) / 1e6
     host_ms = 1e3 * sum(host) / steps
     res = dict(step_host_ms=host_ms, step_wall_ms=1e3 * sum(wall) / steps)
@@ -1939,7 +1944,7 @@ def offload_breakdown(engine, state, max_ctx, steps=4):
         tag = KERNEL_TAGS[IMPL_KERNEL[engine.attn_impl]]
         want = 2 * engine.cfg.n_layers
         rows, _ = _profile_rows(
-            lambda: plane.decode_step(state, tokens, np.ones(plane.B, bool)),
+            lambda: plane.step(state, tokens, np.ones(plane.B, bool)),
             1, complete=lambda rows: _launch_count(rows, tag) == want)
     n = _launch_count(rows, tag)
     res["profiled_replay"] = dict(attention_launches=n,
@@ -1991,11 +1996,10 @@ def compiled_offload_check(engine, state, max_ctx, steps=8):
                     p = plane_copy(engine, plane, max_ctx)
                     st, tok = _live_copy(state), plane.stage.tokens.clone()
                     seq = []
+                    step = p.decode_step if capture else p.step
                     for _ in range(steps):
-                        lg, _ = p.decode_step(st, tok, active)
-                        seq.append((lg.clone(), p.stage.ids.clone()))
-                        if capture:
-                            p.stage.capture_pieces()
+                        lg, ids = step(st, tok, active)
+                        seq.append((lg.clone(), ids.clone()))
                     torch.cuda.synchronize()
                     runs[capture] = (p, st, tok, seq, plane_counters(p),
                                      p.stage.replays)
@@ -2003,7 +2007,7 @@ def compiled_offload_check(engine, state, max_ctx, steps=8):
                 tag = KERNEL_TAGS.get(IMPL_KERNEL.get(impl))
                 want_attn = 2 * engine.cfg.n_layers if tag else 0
                 rows, _ = _profile_rows(
-                    lambda: p.decode_step(st, tok, active), 1,
+                    lambda: p.step(st, tok, active), 1,
                     complete=lambda rows:
                     _launch_count(rows, tag) == want_attn)
             (pe, _, _, eager, ce, _), (pg, _, _, replay, cg, replays) = \
@@ -2061,14 +2065,19 @@ def _plane_logits(cfg, params, impl, device, steps=6, **kw):
     import torch
     from repro_torch.core.wave_index import WaveState
     from repro_torch.models.transformer import ServeState
-    from repro_torch.serving.engine import Request, ServeEngine, _OffloadPlane
+    from repro_torch.core.zones import plan_zones
+    from repro_torch.serving.engine import (Request, Sampler, ServeEngine,
+                                            _OffloadPlane)
     eng = ServeEngine(cfg, params, gen_headroom=256, max_context=384,
                       prefill_chunk=96, attn_impl=impl, device=device, **kw)
     rng = np.random.default_rng(1)
     eng.serve([Request(rng.integers(0, cfg.vocab, n).astype(np.int32), 2)
                for n in (384, 300)], batch_size=2)
     st = eng.last_state
-    plane = _OffloadPlane(eng, 2, 384)
+    plane = _OffloadPlane(cfg, params, plan_zones(384, cfg.retro, 256), 2,
+                          384, attn_impl=eng.attn_impl,
+                          sample=Sampler(device=device),
+                          placement=eng.placement, device=device)
     for i in range(2):
         plane.admit_slot(i, ServeState(kv=[
             WaveState(*(t[i:i + 1].clone() for t in w)) for w in st.kv]))
@@ -2076,7 +2085,7 @@ def _plane_logits(cfg, params, impl, device, steps=6, **kw):
     out = []
     with torch.inference_mode():
         for _ in range(steps):
-            lg, st = plane.decode_step(st, tok, np.ones(2, bool))
+            lg, _ = plane.step(st, tok, np.ones(2, bool))
             out.append(lg.float().cpu())
             tok = lg.argmax(-1).to(torch.int32)
     return torch.stack(out), plane.degraded_steps
@@ -2846,8 +2855,8 @@ def sampled_compiled_check(engine, max_ctx, steps=8, seed=7,
     import numpy as np
     import torch
     from repro_torch.core.zones import plan_zones
-    from repro_torch.serving.engine import Sampler
-    from repro_torch.serving.graphs import DecodeGraph, leaves
+    from repro_torch.serving.engine import Sampler, _DirectStore
+    from repro_torch.serving.graphs import leaves
     cfg, state = engine.cfg, engine.last_state
     B = engine.last_graph.tokens.shape[0]
     plan = plan_zones(max_ctx, cfg.retro, engine.gen_headroom)
@@ -2865,8 +2874,10 @@ def sampled_compiled_check(engine, max_ctx, steps=8, seed=7,
         graph.tokens.copy_(first)
         sampler.generator.set_state(rng0)
 
-    graph = DecodeGraph(engine._decode_fn(plan), sampler, state,
-                        first.clone(), key=(B, max_ctx, "fused", "sampled"))
+    graph = _DirectStore(cfg, engine.params, plan, state, first.clone(),
+                         sampler, runtime=engine.runtime,
+                         attn_impl=engine.attn_impl,
+                         key=(B, max_ctx, "fused", "sampled")).graph
     ids = []
     real = graph.step
 

@@ -26,9 +26,15 @@ GRAPHS_PATH = "src/repro_torch/serving/graphs.py"
 HOT_PATHS: Dict[str, Tuple[str, ...]] = {
     ENGINE_PATH: (
         "ServeEngine.serve",
+        "ServeEngine._admit_blocking",
+        "ServeEngine._admit_chunked",
+        "ServeEngine._admitted",
         "Sampler.__call__",
         "_Readback.get",
+        "_DirectStore.decode_step",
+        "_DirectStore.flush",
         "_OffloadPlane.decode_step",
+        "_OffloadPlane.step",
         "_OffloadPlane.flush",
         "_OffloadPlane.admit_slot",
         "_OffloadPlane._translate",
@@ -55,7 +61,7 @@ CAPTURED: Dict[str, Dict[str, Tuple[str, ...]]] = {
         "_scatter_rows": ("ck", "cv", "cp", "ids", "rows"),
     },
     ENGINE_PATH: {
-        "ServeEngine._decode_fn.fn": ("st", "tokens", "active"),
+        "_DirectStore.__init__.fn": ("st", "tokens", "active"),
         "Sampler.__call__": ("logits",),
     },
     "src/repro_torch/models/model.py": {"apply_decode": _DECODE},

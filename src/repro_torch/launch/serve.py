@@ -148,15 +148,16 @@ def main(argv=None):
             r.extra = {"frames": rng.standard_normal(
                 (1, cfg.encoder_frames, cfg.d_model)).astype(np.float32)}
     m = engine.serve(reqs, batch_size=args.batch, seed=args.seed)
+    offload = engine.placement.offload
     print(f"served {len(reqs)} requests on {args.batch} slots "
-          f"({engine.runtime}{'+offload' if engine.offload else ''}, "
+          f"({engine.runtime}{'+offload' if offload else ''}, "
           f"{engine.admission} admission, {engine.attn_impl} attention, "
           f"{dev}): "
           f"prefill {m.prefill_s:.2f}s, "
           f"decode {m.tokens_out} tokens @ {m.decode_tps:.1f} tok/s, "
           f"slot occupancy {m.slot_occupancy:.2f}, "
           f"itl p50/p99 {m.itl_p50_s * 1e3:.1f}/{m.itl_p99_s * 1e3:.1f} ms")
-    if engine.offload:
+    if offload:
         c = m.cache
         print(f"  wave buffer: hit {c.hit_ratio:.3f} "
               f"(effective {c.effective_hit_ratio:.3f}, "

@@ -432,6 +432,49 @@ def _pack(k, v, p):
                       v.float().reshape(lead + (-1,)), p.float()], -1)
 
 
+class _DirectStore:
+    """One direct-store ``serve`` call's KV placement, with the offload
+    plane's interface: the batch state on the device, stepped by one
+    ``DecodeGraph`` of ``apply_decode`` and the call's sampler (the only
+    place that composes the two). A share layer adds its row counts into
+    ``moe_counts`` in the step. The step holds no reference to the store or
+    the engine: no cycle keeps a dropped engine's state alive."""
+
+    def __init__(self, cfg: ModelConfig, params, plan, state,
+                 tokens: torch.Tensor, sample, *, runtime: str,
+                 attn_impl: str, key: Optional[tuple] = None):
+        self.cfg = cfg
+        self.failed_slots: Dict[int, str] = {}      # always empty
+        self.moe_counts = moe_counts = torch.zeros(
+            (2,), dtype=torch.int64, device=tokens.device) \
+            if cfg.moe is not None and cfg.moe.share else None
+
+        def fn(st, tokens, active):
+            return M.apply_decode(params, cfg, st, tokens, runtime=runtime,
+                                  plan=plan, active=active,
+                                  attn_impl=attn_impl, moe_counts=moe_counts)
+        self.graph = DecodeGraph(fn, sample, state, tokens, key=key)
+
+    def admit_slot(self, i: int, st1) -> None:
+        """Nothing to place: ``graft`` copied the slot's row on the device."""
+
+    def decode_step(self, state, tokens_dev, active):
+        """The graph's step (its token buffer is ``tokens_dev``)."""
+        return self.graph.step(active, state)
+
+    def flush(self, state, rows):
+        return M.flush_state(self.cfg, state)
+
+    def export_stats(self, metrics: "ServeMetrics") -> None:
+        if self.moe_counts is not None:
+            metrics.moe_rows_routed, metrics.moe_rows_computed = \
+                self.moe_counts.tolist()  # retrolint: sync(share-layer row counts, once a call)
+
+    def kept(self):
+        """The engine's ``last_graph`` and ``last_plane``."""
+        return self.graph, None
+
+
 class _OffloadPlane:
     """Host control plane of one offload ``serve`` call (paper Sec. 4.3).
 
@@ -460,8 +503,9 @@ class _OffloadPlane:
     buffer behind an event); only then does layer l's admission drain run
     on the host, so the id wait overlaps the drain. The device work runs
     through an ``OffloadStage`` (``serving/graphs.py``): ``L + 1`` pieces on
-    static buffers, replayed as CUDA graphs once its owner has captured
-    them (``ServeEngine.serve`` on the card), else run eagerly.
+    static buffers, run eagerly until ``decode_step`` captures them after
+    its first step on the card, replayed as CUDA graphs after (``step``
+    runs them as they stand and never captures).
     Host->device traffic is the active mask, the translated slot ids and
     validity mask and the padded admission / miss ids, and only the payload
     rows that change the cache (fetched misses, admissions): the staging
@@ -495,15 +539,13 @@ class _OffloadPlane:
         """Schedule-event hook, one call per dispatch / host op / sync in
         program order; a no-op."""
 
-    def __init__(self, engine: "ServeEngine", B: int, max_ctx: int):
-        cfg = engine.cfg
-        self.dev = engine.device
-        plan = plan_zones(max_ctx, cfg.retro, engine.gen_headroom)
+    def __init__(self, cfg: ModelConfig, params, plan, B: int, max_ctx: int,
+                 *, attn_impl: str, sample, placement: "KVPlacement", device):
+        self.dev = torch.device(device)
         self.L, self.B, self.H = cfg.n_layers, B, cfg.n_kv_heads
         self.M = plan.m_max
         self.r = max(plan.r, 1)             # staging tail (dead slot if r=0)
-        self.C = engine._resolve_cache_clusters(self.M)
-        self.policy = engine.cache_policy
+        self.C = placement.cache_slots(self.M)
         C, r, cap, dev = self.C, self.r, cfg.retro.cluster_cap, self.dev
         # slot C + r: the dead slot of the stage's padded cache writes
         self.cache_k = [torch.zeros((B, self.H, C + r + 1, cap, cfg.head_dim),
@@ -519,12 +561,10 @@ class _OffloadPlane:
         # ONE transport per plane, shared by every buffer: the control plane
         # is single-threaded, so a seeded FaultyTransport yields one
         # reproducible fault schedule per serve
-        self.transport = (FaultyTransport(engine.fault_profile)
-                          if engine.fault_profile is not None
+        self.transport = (FaultyTransport(placement.fault_profile)
+                          if placement.fault_profile is not None
                           else LinkTransport())
-        self.fetch_retries = engine.fetch_retries
-        self.fetch_backoff_s = engine.fetch_backoff_s
-        self.fetch_deadline_s = engine.fetch_deadline_s
+        self.fetch_deadline_s = placement.fetch_deadline_s
         self.degraded_steps = 0             # steps with >= 1 masked cluster
         self.dropped_cluster_steps = 0      # cluster-step masked count
         self.failed_slots: Dict[int, str] = {}   # slot -> fatal fault message
@@ -533,15 +573,14 @@ class _OffloadPlane:
         self.cfg = cfg
         self._flush = M.offload_decode_fns(cfg)[-1]
         self.stage = OffloadStage(
-            cfg, engine.params, plan, engine.attn_impl,
-            (self.cache_k, self.cache_v, self.cache_p), C,
-            sample=engine._sample_dev,
-            key=(B, max_ctx, C, r, engine.attn_impl))
+            cfg, params, plan, attn_impl,
+            (self.cache_k, self.cache_v, self.cache_p), C, sample=sample,
+            key=(B, max_ctx, C, r, attn_impl))
         D = 2 * cap * cfg.head_dim + cap
         self.layers = [WaveBufferBatch(
-            B, self.H, self.M, D, C, policy=self.policy,
-            transport=self.transport, max_retries=self.fetch_retries,
-            backoff_s=self.fetch_backoff_s) for _ in range(self.L)]
+            B, self.H, self.M, D, C, policy=placement.cache_policy,
+            transport=self.transport, max_retries=placement.fetch_retries,
+            backoff_s=placement.fetch_backoff_s) for _ in range(self.L)]
         # per layer, two (N, D) pinned stagings of fetched rows, used by
         # alternate steps (see the class docstring); ``host_rows`` is their
         # numpy view
@@ -657,11 +696,19 @@ class _OffloadPlane:
 
     # ------------------------------------------------------------- decode
     def decode_step(self, state, tokens_dev, active):
+        """The serve loop's step: ``step``, then the stage's capture (after
+        the first step on the card; a no-op after it and on the CPU)."""
+        out = self.step(state, tokens_dev, active)
+        self.stage.capture_pieces()
+        return out
+
+    def step(self, state, tokens_dev, active):
         """One decode step over the slot batch, layer-pipelined (see the
-        class docstring), through the stage's pieces. The sampled ids are
-        written into ``tokens_dev`` (and the stage's ``ids``). Returns
-        (device logits, the state, updated in place); the logits are the
-        stage's static buffer, which the next step overwrites."""
+        class docstring), through the stage's pieces as they stand (eager
+        until captured). The sampled ids are written into ``tokens_dev``.
+        Returns the stage's device ``(logits, ids)``: an eager step's own
+        tensors, once captured the graph's, which the next step
+        overwrites; the state is updated in place."""
         self._step += 1
         t = self._step
         cn = self.counts
@@ -707,7 +754,7 @@ class _OffloadPlane:
         self.trace("unembed_logits", -1, "dispatch", t)
         if self.dropped_cluster_steps > drops_before:
             self.degraded_steps += 1
-        return st.logits, state
+        return st.logits, st.ids
 
     # -------------------------------------------------------------- flush
     def flush(self, state, rows):
@@ -746,6 +793,57 @@ class _OffloadPlane:
         metrics.degraded_steps += self.degraded_steps
         metrics.dropped_cluster_steps += self.dropped_cluster_steps
 
+    def kept(self):
+        """The engine's ``last_graph`` and ``last_plane``."""
+        return self.stage, self
+
+
+@dataclass(frozen=True)
+class KVPlacement:
+    """Where a serve call's KV lives, decided in one place (``open``): on
+    the device (``_DirectStore``), or with ``offload`` in host memory
+    behind the offload plane's block cache (``_OffloadPlane``), which the
+    other fields size and whose fetches they shape (``ServeEngine``'s
+    keywords of the same names)."""
+    offload: bool
+    cache_clusters: int
+    cache_frac: float
+    cache_policy: str
+    fault_profile: Optional[FaultProfile]
+    fetch_deadline_s: Optional[float]
+    fetch_retries: int
+    fetch_backoff_s: float
+
+    def check(self, cfg: ModelConfig, runtime: str) -> None:
+        """Refuse an offload that the config or the runtime cannot serve."""
+        if not self.offload:
+            return
+        refuse_ring(cfg, "host-offload serving", runtime)
+        if not M.supports_offload(cfg, runtime):
+            raise ValueError("host-offload serving requires the retro "
+                             f"runtime on an attention family, got "
+                             f"runtime={runtime!r} family={cfg.family!r}")
+
+    def cache_slots(self, m_max: int) -> int:
+        """Device block-cache slots: the absolute override or a fraction of
+        the cluster-store size, clamped to [1, m_max]."""
+        c = self.cache_clusters if self.cache_clusters > 0 \
+            else int(self.cache_frac * m_max)
+        return max(1, min(c, m_max))
+
+    def open(self, cfg: ModelConfig, params, plan, state,
+             tokens: torch.Tensor, sample, *, runtime: str, attn_impl: str,
+             max_ctx: int):
+        """One serve call's store over its batch state and token buffer."""
+        B = tokens.shape[0]
+        if self.offload:
+            return _OffloadPlane(cfg, params, plan, B, max_ctx,
+                                 attn_impl=attn_impl, sample=sample,
+                                 placement=self, device=tokens.device)
+        return _DirectStore(cfg, params, plan, state, tokens, sample,
+                            runtime=runtime, attn_impl=attn_impl,
+                            key=(B, max_ctx, attn_impl, runtime))
+
 
 class Sampler:
     """On-device sampling of (B, V) f32 logits to (B,) int32 ids, no host
@@ -774,6 +872,23 @@ class Sampler:
         g = -torch.log(-torch.log(u.clamp_(min=torch.finfo(u.dtype).tiny)))
         return (logits / self.temperature + g).argmax(dim=-1) \
             .to(torch.int32)
+
+
+@dataclass
+class _Call:
+    """One ``serve`` call's scheduler state that its admission methods
+    share: the queue of (rid, request), per slot its request, its chunked
+    admission in progress and its decoding flag, the batch state, its
+    store, and the call's metrics."""
+    queue: deque
+    slots: List[Optional[Request]]
+    admitting: List[Optional[_Admission]]
+    active: np.ndarray
+    state: Any
+    store: Any                          # _DirectStore | _OffloadPlane
+    plan: Any
+    max_ctx: int
+    metrics: ServeMetrics
 
 
 def _recorded(serve):
@@ -834,34 +949,25 @@ class ServeEngine:
         self.runtime = runtime
         self.gen_headroom = gen_headroom
         self.temperature = temperature
-        # the decode steps' sampler; ``serve`` makes a fresh one, seeded
-        self._sample_dev = Sampler(temperature, 0, self.device)
         self.max_context = max_context
         self.prefill_bucket = max(1, prefill_bucket)
         self.admission = admission
         self.prefill_chunk = max(1, prefill_chunk)
         self.max_decode_steps = max_decode_steps
         retro = cfg.retro
-        self.offload = retro.offload if offload is None else offload
-        if self.offload:
-            refuse_ring(cfg, "host-offload serving", runtime)
-        if admission == "chunked" and M.supports_chunked_prefill(cfg, runtime):
-            refuse_ring(cfg, "chunked admission", runtime)
-        if self.offload and not M.supports_offload(cfg, runtime):
-            raise ValueError("host-offload serving requires the retro "
-                             f"runtime on an attention family, got "
-                             f"runtime={runtime!r} family={cfg.family!r}")
-        self.cache_clusters = retro.cache_clusters if cache_clusters is None \
-            else cache_clusters
-        self.cache_frac = retro.cache_frac if cache_frac is None \
-            else cache_frac
-        self.cache_policy = cache_policy or retro.cache_policy
         if isinstance(fault_profile, str):
             fault_profile = FaultProfile.parse(fault_profile)
-        self.fault_profile = fault_profile
-        self.fetch_deadline_s = fetch_deadline_s
-        self.fetch_retries = fetch_retries
-        self.fetch_backoff_s = fetch_backoff_s
+        self.placement = KVPlacement(
+            offload=retro.offload if offload is None else offload,
+            cache_clusters=retro.cache_clusters if cache_clusters is None
+            else cache_clusters,
+            cache_frac=retro.cache_frac if cache_frac is None else cache_frac,
+            cache_policy=cache_policy or retro.cache_policy,
+            fault_profile=fault_profile, fetch_deadline_s=fetch_deadline_s,
+            fetch_retries=fetch_retries, fetch_backoff_s=fetch_backoff_s)
+        self.placement.check(cfg, runtime)
+        if admission == "chunked" and M.supports_chunked_prefill(cfg, runtime):
+            refuse_ring(cfg, "chunked admission", runtime)
         self.spans = spans
 
     def _bucket(self, L: int) -> int:
@@ -876,40 +982,93 @@ class ServeEngine:
         b = self.prefill_bucket
         return L if b <= 1 else ((L + b - 1) // b) * b
 
-    def _resolve_cache_clusters(self, m_max: int) -> int:
-        """Device block-cache slots: the absolute override or a fraction of
-        the cluster-store size, clamped to [1, m_max]."""
-        c = self.cache_clusters if self.cache_clusters > 0 \
-            else int(self.cache_frac * m_max)
-        return max(1, min(c, m_max))
+    # ----------------------------------------------------------- admission
+    def _admit_blocking(self, c: "_Call", i: int) -> Optional[_Admission]:
+        """Blocking admission into slot ``i`` when it is free: the next
+        request's whole prompt prefilled in one pass."""
+        if c.active[i] or c.slots[i] is not None or not c.queue:
+            return None
+        cfg, dev = self.cfg, self.device
+        rid, req = c.queue.popleft()
+        L = len(req.prompt)
+        with spans.host("admit", rid=rid, slot=i, tokens=L):
+            S_b = min(self._bucket(L), c.max_ctx)
+            toks = np.zeros((1, S_b), np.int32)
+            toks[0, :L] = req.prompt
+            batch = {"tokens": to_device(toks, dev), **_extras(req, dev)}
+            # recurrent prefills take no ragged lengths (and _bucket never
+            # pads them)
+            lengths = to_device(np.array([L], np.int32), dev) \
+                if cfg.family in M.ATTN_FAMILIES else None
+            with spans.host("prefill"):
+                logits, st1 = M.apply_prefill(
+                    self.params, cfg, batch, runtime=self.runtime,
+                    plan=c.plan, gen_headroom=self.gen_headroom,
+                    lengths=lengths,
+                    cache_len=c.max_ctx + self.gen_headroom)
+            c.metrics.prefill_tokens += L
+            return self._admitted(c, i, st1, _Admission(
+                req=req, rid=rid, logits=logits, consumed=L))
 
-    def _decode_fn(self, plan, moe_counts=None):
-        """The direct-store decode step of one geometry, as ``DecodeGraph``
-        takes it. The step holds no reference to the engine, which holds
-        the graph (``last_graph``): no cycle keeps a dropped engine's state
-        alive. ``moe_counts``: the share layers' row counters, at a fixed
-        address the captured step adds to."""
-        params, cfg, rt, impl = self.params, self.cfg, self.runtime, \
-            self.attn_impl
+    def _admit_chunked(self, c: "_Call", i: int) -> Optional[_Admission]:
+        """Chunked admission in slot ``i``: one prefill chunk of its
+        request (the next queued one, when the slot is free); the request's
+        admission once its last chunk is in."""
+        if c.admitting[i] is None and not c.active[i] \
+                and c.slots[i] is None and c.queue:
+            rid, req = c.queue.popleft()
+            c.admitting[i] = _Admission(req=req, rid=rid)
+        adm = c.admitting[i]
+        if adm is None:
+            return None
+        cfg, dev, rt = self.cfg, self.device, self.runtime
+        L, C = len(adm.req.prompt), self.prefill_chunk
+        n = min(C, L - adm.consumed)
+        with spans.host("admit", rid=adm.rid, slot=i, tokens=n):
+            if adm.cstate is None:          # the request's first chunk
+                adm.extra = _extras(adm.req, dev)
+                adm.cstate = M.make_prefill_chunk_state(
+                    cfg, 1, c.max_ctx, runtime=rt, chunk=C,
+                    gen_headroom=self.gen_headroom, device=dev)
+            toks = np.zeros((1, C), np.int32)
+            toks[0, :n] = adm.req.prompt[adm.consumed:adm.consumed + n]
+            with spans.host("chunk"):
+                adm.logits, adm.cstate = M.apply_prefill_chunk(
+                    self.params, cfg,
+                    {"tokens": to_device(toks, dev), **adm.extra},
+                    adm.cstate, runtime=rt,
+                    chunk_lens=to_device(np.array([n], np.int32), dev))
+            adm.consumed += n
+            c.metrics.prefill_tokens += n
+            if adm.consumed < L:
+                return None
+            with spans.host("fin"):
+                st1 = M.finalize_prefill_chunk(cfg, adm.cstate, runtime=rt,
+                                               total_len=L)
+            adm.cstate = c.admitting[i] = None
+            return self._admitted(c, i, st1, adm)
 
-        def fn(st, tokens, active):
-            return M.apply_decode(params, cfg, st, tokens, runtime=rt,
-                                  plan=plan, active=active, attn_impl=impl,
-                                  moe_counts=moe_counts)
-        return fn
+    @staticmethod
+    def _admitted(c: "_Call", i: int, st1, adm: _Admission) -> _Admission:
+        """Both admissions' tail: the single-row state ``st1`` grafted into
+        row ``i`` of the batch state, then placed by the store."""
+        with spans.host("graft"):
+            c.state = graft(c.state, st1, i)
+        c.store.admit_slot(i, st1)
+        return adm
 
+    # -------------------------------------------------------------- serve
     @_recorded
     @torch.inference_mode()
     def serve(self, requests: List[Request], batch_size: int,
               seed: int = 0) -> ServeMetrics:
         """Serve a FIFO queue through ``batch_size`` continuous slots. The
-        decode state and its captured step (``last_graph``: a
-        ``DecodeGraph``, or with offload the plane's ``OffloadStage``)
-        belong to this call: each call captures once, at its geometry.
-        ``seed`` seeds the sampler (``temperature`` > 0): one seed, one
-        token stream."""
+        decode state and its store (``KVPlacement.open``), with its
+        captured step (``last_graph``: a ``DecodeGraph``, or with offload
+        the plane's ``OffloadStage``), belong to this call: each call
+        captures once, at its geometry. ``seed`` seeds the sampler
+        (``temperature`` > 0): one seed, one token stream."""
         cfg, dev, rt = self.cfg, self.device, self.runtime
-        self._sample_dev = Sampler(self.temperature, seed, dev)
         if not requests:
             raise ValueError("no requests")
         max_ctx = self.max_context or max(self._bucket(len(r.prompt))
@@ -926,6 +1085,7 @@ class ServeEngine:
         chunked = self.admission == "chunked" \
             and M.supports_chunked_prefill(cfg, rt) \
             and cfg.sparse_prefill_blocks == 0
+        admit = self._admit_chunked if chunked else self._admit_blocking
         plan = plan_zones(max_ctx, cfg.retro, self.gen_headroom) \
             if cfg.family != "ssm" else None
         state = M.make_serve_state(cfg, B, max_ctx, runtime=rt,
@@ -933,8 +1093,16 @@ class ServeEngine:
                                    zero_fill=True, device=dev)
         lbuf = local_buffer_size(cfg.retro)
         use_flush = rt == "retro" and cfg.family != "ssm"
-        plane = _OffloadPlane(self, B, max_ctx) if self.offload else None
-
+        # the step's token buffer: written in place, never rebound
+        tokens_dev = torch.zeros((B,), dtype=torch.int32, device=dev)
+        # the ids' host buffers, alternated: step t's are read after step
+        # t + 1 is enqueued, and step t + 2 writes them after that read
+        h_ids = [torch.zeros((B,), dtype=torch.int32,
+                             pin_memory=dev.type == "cuda") for _ in range(2)]
+        sample = Sampler(self.temperature, seed, dev)
+        store = self.placement.open(cfg, self.params, plan, state, tokens_dev,
+                                    sample, runtime=rt,
+                                    attn_impl=self.attn_impl, max_ctx=max_ctx)
         queue = deque(enumerate(requests))      # (rid, request)
         slots: List[Optional[Request]] = [None] * B
         admitting: List[Optional[_Admission]] = [None] * B
@@ -942,22 +1110,13 @@ class ServeEngine:
         staged = np.zeros(B, np.int64)      # host mirror of local_len
         slot_steps = np.zeros(B, np.int64)  # watchdog: decode steps per slot
         admit_t = np.zeros(B, float)
-        # the step's token buffer: written in place, never rebound
-        tokens_dev = torch.zeros((B,), dtype=torch.int32, device=dev)
-        # the ids' host buffers, alternated: step t's are read after step
-        # t + 1 is enqueued, and step t + 2 writes them after that read
-        h_ids = [torch.zeros((B,), dtype=torch.int32,
-                             pin_memory=dev.type == "cuda") for _ in range(2)]
-        moe_counts = torch.zeros((2,), dtype=torch.int64, device=dev) \
-            if cfg.moe is not None and cfg.moe.share else None
-        graph = plane.stage if plane is not None else DecodeGraph(
-            self._decode_fn(plan, moe_counts), self._sample_dev, state,
-            tokens_dev, key=(B, max_ctx, self.attn_impl, rt))
         prev: Optional[_Readback] = None    # step t's ids (copy in flight)
         prev_snapshot: List[Optional[Request]] = [None] * B
         last_deliver_t: Optional[float] = None
         last_deliver: set = set()
         metrics = ServeMetrics(n_slots=B)
+        c = _Call(queue, slots, admitting, active, state, store, plan,
+                  max_ctx, metrics)
         t_start = time.perf_counter()
 
         def finish(i: int, req: Request, status: str = "ok"):
@@ -974,84 +1133,16 @@ class ServeEngine:
         # first_token, decode, harvest and flush.
         while queue or active.any() or any(a is not None for a in admitting) \
                 or prev is not None:
-            # ---- admission: one prefill chunk per admitting slot ----------
+            # ---- admission: one prefill (chunk) per admitting slot ---------
             t0 = time.perf_counter()
-            completed: List[Tuple[int, _Admission]] = []
-            for i in range(B):
-                if not chunked:
-                    if active[i] or slots[i] is not None or not queue:
-                        continue
-                    rid, req = queue.popleft()
-                    L = len(req.prompt)
-                    with spans.host("admit", rid=rid, slot=i, tokens=L):
-                        S_b = min(self._bucket(L), max_ctx)
-                        toks = np.zeros((1, S_b), np.int32)
-                        toks[0, :L] = req.prompt
-                        batch = {"tokens": to_device(toks, dev),
-                                 **_extras(req, dev)}
-                        # recurrent prefills take no ragged lengths (and
-                        # _bucket never pads them)
-                        lengths = to_device(np.array([L], np.int32), dev) \
-                            if cfg.family in M.ATTN_FAMILIES else None
-                        with spans.host("prefill"):
-                            logits, st1 = M.apply_prefill(
-                                self.params, cfg, batch, runtime=rt,
-                                plan=plan, gen_headroom=self.gen_headroom,
-                                lengths=lengths,
-                                cache_len=max_ctx + self.gen_headroom)
-                        metrics.prefill_tokens += L
-                        with spans.host("graft"):
-                            state = graft(state, st1, i)
-                        if plane is not None:   # device->host store offload
-                            plane.admit_slot(i, st1)
-                        completed.append((i, _Admission(
-                            req=req, rid=rid, logits=logits, consumed=L)))
-                    continue
-                if admitting[i] is None and not active[i] \
-                        and slots[i] is None and queue:
-                    rid, req = queue.popleft()
-                    admitting[i] = _Admission(req=req, rid=rid)
-                adm = admitting[i]
-                if adm is None:
-                    continue
-                L, C = len(adm.req.prompt), self.prefill_chunk
-                n = min(C, L - adm.consumed)
-                with spans.host("admit", rid=adm.rid, slot=i, tokens=n):
-                    if adm.cstate is None:          # the request's first chunk
-                        adm.extra = _extras(adm.req, dev)
-                        adm.cstate = M.make_prefill_chunk_state(
-                            cfg, 1, max_ctx, runtime=rt,
-                            chunk=self.prefill_chunk,
-                            gen_headroom=self.gen_headroom, device=dev)
-                    toks = np.zeros((1, C), np.int32)
-                    toks[0, :n] = adm.req.prompt[adm.consumed:adm.consumed + n]
-                    with spans.host("chunk"):
-                        adm.logits, adm.cstate = M.apply_prefill_chunk(
-                            self.params, cfg,
-                            {"tokens": to_device(toks, dev), **adm.extra},
-                            adm.cstate, runtime=rt,
-                            chunk_lens=to_device(np.array([n], np.int32),
-                                                 dev))
-                    adm.consumed += n
-                    metrics.prefill_tokens += n
-                    if adm.consumed >= L:
-                        with spans.host("fin"):
-                            st1 = M.finalize_prefill_chunk(
-                                cfg, adm.cstate, runtime=rt, total_len=L)
-                        with spans.host("graft"):
-                            state = graft(state, st1, i)
-                        if plane is not None:   # device->host store offload
-                            plane.admit_slot(i, st1)
-                        adm.cstate = None
-                        admitting[i] = None
-                        completed.append((i, adm))
-
+            completed = [(i, a) for i in range(B)
+                         if (a := admit(c, i)) is not None]
             if completed:
                 with spans.host("first_token", requests=len(completed)):
                     # coalesced first-token sampling: ONE host sync for
                     # every request admitted this iteration
                     stacked = torch.cat([a.logits for _, a in completed], 0)
-                    first = self._sample_dev(stacked)
+                    first = sample(stacked)
                     first = first.cpu().numpy()  # retrolint: sync(coalesced first tokens)
                     spans.resolve()     # the admissions' device spans
                     now = time.perf_counter()
@@ -1090,12 +1181,8 @@ class ServeEngine:
                     # into tokens_dev) are copied to the host on this stream
                     # after this step and before the next one overwrites
                     # them: stream order keeps it safe
-                    if plane is not None:
-                        plane.decode_step(state, tokens_dev, active)
-                        new_sampled = graph.ids
-                        graph.capture_pieces()      # after the first step
-                    else:
-                        _, new_sampled = graph.step(active, state)
+                    _, new_sampled = store.decode_step(c.state, tokens_dev,
+                                                       active)
                     cur = _Readback(new_sampled, h_ids[metrics.steps % 2])
                     snapshot = [slots[i] if active[i] else None
                                 for i in range(B)]
@@ -1106,11 +1193,10 @@ class ServeEngine:
                     # unrecoverable link fault: finish only the affected
                     # requests (their in-flight token is dropped by the
                     # lagged harvest)
-                    if plane is not None and plane.failed_slots:
-                        for i in sorted(plane.failed_slots):
-                            if slots[i] is not None:
-                                finish(i, slots[i], status="error")
-                        plane.failed_slots.clear()
+                    for i in sorted(store.failed_slots):
+                        if slots[i] is not None:
+                            finish(i, slots[i], status="error")
+                    store.failed_slots.clear()
                     if self.max_decode_steps is not None:
                         for i in range(B):
                             if active[i] and \
@@ -1146,20 +1232,13 @@ class ServeEngine:
             if use_flush and (staged >= lbuf).any():
                 rows = staged >= lbuf
                 with spans.host("flush", rows=int(rows.sum())):
-                    if plane is not None:
-                        state = plane.flush(state, rows)
-                    else:
-                        state = M.flush_state(cfg, state)
+                    c.state = store.flush(c.state, rows)
                 metrics.flushes += 1
                 staged[rows] -= cfg.retro.update_segment
-        if plane is not None:
-            plane.export_stats(metrics)
-        if moe_counts is not None:
-            metrics.moe_rows_routed, metrics.moe_rows_computed = \
-                moe_counts.tolist()  # retrolint: sync(share-layer row counts, once a call)
-        self.last_plane = plane             # inspection hooks (tests, smoke)
-        self.last_state = state
-        self.last_graph = graph
+        store.export_stats(metrics)
+        # inspection hooks (tests, smoke)
+        self.last_graph, self.last_plane = store.kept()
+        self.last_state = c.state
         return metrics
 
     def run_wave(self, requests: List[Request],

@@ -6,8 +6,8 @@ Port-only counterpart of ``ServeEngine._decode_fns`` in
 ``jax.jit`` with the serve state donated, compiled once per
 ``(batch_size, max_ctx)`` (the "decode" entry of ``SERVE_STAGES``, budget
 ``per_geometry``). Here a ``DecodeGraph`` holds one geometry's step — the
-engine makes one per ``serve`` call, keyed ``(batch, max_ctx, impl,
-runtime)``, and drops it with the call's state:
+engine's direct store makes one per ``serve`` call, keyed ``(batch,
+max_ctx, impl, runtime)``, and drops it with the call's state:
 
 * on a CUDA state, the first ``step`` runs the decode step eagerly on a side
   stream (the warm-up: it builds and loads the kernels, sets their
@@ -227,9 +227,9 @@ class OffloadStage:
     static outputs) it captures each piece into its own CUDA graph, all
     from one memory pool, in the order they replay (capture runs no
     kernel: the state does not advance); every later step replays them. A
-    capture error raises; nothing falls back to eager. The serving engine
-    captures after its first step; on the CPU every step runs the same
-    pieces eagerly.
+    capture error raises; nothing falls back to eager. The offload plane's
+    ``decode_step`` captures after its first step; on the CPU every step
+    runs the same pieces eagerly.
 
     Fixed addresses: the hidden state, the rank's outputs (query,
     estimation inputs, retrieval cover: one set, shared by the layers), the

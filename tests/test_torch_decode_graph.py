@@ -20,7 +20,8 @@ from repro_torch.kernels.wave_attention import ops as wa_ops
 from repro_torch.models import model as M
 from repro_torch.models.transformer import ServeState
 from repro_torch.serving import graphs
-from repro_torch.serving.engine import Request, ServeEngine
+from repro_torch.serving.engine import (Request, Sampler, ServeEngine,
+                                        _DirectStore)
 
 torch.set_num_threads(2)
 S, LENS, HEADROOM = 200, (200, 150), 64
@@ -72,11 +73,10 @@ ACTIVE = [np.array([True, t % 3 != 1]) for t in range(8)]
 
 
 def _stage(cfg, params, runtime, impl, state, plan, device):
-    eng = ServeEngine(cfg, params, runtime=runtime, attn_impl=impl,
-                      gen_headroom=HEADROOM, device=device)
     tokens = torch.tensor([3, 5], dtype=torch.int32, device=device)
-    return graphs.DecodeGraph(eng._decode_fn(plan), eng._sample_dev,
-                              state, tokens), eng
+    return _DirectStore(cfg, params, plan, state, tokens,
+                        Sampler(device=device), runtime=runtime,
+                        attn_impl=impl).graph
 
 
 @pytest.mark.parametrize("case", list(STEP_CASES))
@@ -89,7 +89,7 @@ def test_stable_state_step_matches_functional_step(case):
     cfg = _cfg()
     params = _params(cfg)
     state0, plan = _prefilled(cfg, params, runtime)
-    stage, _ = _stage(cfg, params, runtime, impl, _copy(state0), plan, "cpu")
+    stage = _stage(cfg, params, runtime, impl, _copy(state0), plan, "cpu")
     addresses = graphs.state_addresses(stage.state)
     func, tok = _copy(state0), torch.tensor([3, 5], dtype=torch.int32)
     for t, act in enumerate(ACTIVE):
@@ -114,7 +114,7 @@ def test_step_that_rebinds_the_state_raises():
     cfg = _cfg()
     params = _params(cfg)
     state, plan = _prefilled(cfg, params, "retro")
-    stage, eng = _stage(cfg, params, "retro", "jnp", state, plan, "cpu")
+    stage = _stage(cfg, params, "retro", "jnp", state, plan, "cpu")
     real = stage.fn
 
     def rebinding(st, tokens, active):
@@ -248,15 +248,14 @@ def test_replay_equals_eager(cuda, case):
     params = _params(cfg, cuda)
     state0, plan = _prefilled(cfg, params, runtime, cuda)
     with torch.inference_mode():
-        stage, eng = _stage(cfg, params, runtime, impl, _copy(state0), plan,
-                            cuda)
-        fn = eng._decode_fn(plan)
+        stage = _stage(cfg, params, runtime, impl, _copy(state0), plan, cuda)
+        fn = stage.fn
         eager, tok = _copy(state0), stage.tokens.clone()
         for t, act in enumerate(ACTIVE):
             lg, ids = stage.step(act, stage.state)
             lg, ids = lg.clone(), ids.clone()
             ref, eager = fn(eager, tok, torch.from_numpy(act).to(cuda))
-            tok = eng._sample_dev(ref)
+            tok = stage.sample(ref)
             assert torch.equal(lg, ref), f"step {t}"
             assert torch.equal(ids, tok), f"step {t}"
     torch.cuda.synchronize()
@@ -295,7 +294,7 @@ def test_capture_error_raises(cuda):
     cfg = _cfg()
     params = _params(cfg, cuda)
     state, plan = _prefilled(cfg, params, "retro", cuda)
-    stage, _ = _stage(cfg, params, "retro", "fused", state, plan, cuda)
+    stage = _stage(cfg, params, "retro", "fused", state, plan, cuda)
     real = stage.fn
 
     def reads_back(st, tokens, active):

@@ -31,7 +31,8 @@ from repro_torch.configs import registry
 from repro_torch.interop import params_from_numpy, serve_state_to_numpy
 from repro_torch.models import model as M
 from repro_torch.serving import graphs
-from repro_torch.serving.engine import Request, ServeEngine
+from repro_torch.serving.engine import (Request, Sampler, ServeEngine,
+                                        _DirectStore)
 
 torch.set_num_threads(2)
 RTOL, STATE_TOL = 1e-5, 1e-6
@@ -286,18 +287,17 @@ def test_family_replay_equals_eager(cuda, arch, impl):
     with torch.inference_mode():
         _, state0 = M.apply_prefill(params, cfg, batch, plan=plan,
                                     gen_headroom=64)
-        eng = ServeEngine(cfg, params, attn_impl=impl or "jnp",
-                          gen_headroom=64, device=cuda)
         tokens = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
-        stage = graphs.DecodeGraph(eng._decode_fn(plan), eng._sample_dev,
-                                   _clone(state0), tokens)
-        fn, eager, tok = eng._decode_fn(plan), _clone(state0), tokens.clone()
+        stage = _DirectStore(cfg, params, plan, _clone(state0), tokens,
+                             Sampler(device=cuda), runtime="retro",
+                             attn_impl=impl or "jnp").graph
+        fn, eager, tok = stage.fn, _clone(state0), tokens.clone()
         for t in range(8):
             act = np.array([True, t % 3 != 1])
             lg, ids = stage.step(act, stage.state)
             lg, ids = lg.clone(), ids.clone()
             ref, eager = fn(eager, tok, torch.from_numpy(act).to(cuda))
-            tok = eng._sample_dev(ref)
+            tok = stage.sample(ref)
             assert torch.equal(lg, ref), f"step {t}"
             assert torch.equal(ids, tok), f"step {t}"
     torch.cuda.synchronize()

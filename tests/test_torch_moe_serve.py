@@ -24,8 +24,8 @@ from repro_torch.configs import mixtral_8x22b
 from repro_torch.configs.base import MoEConfig
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import model as M
-from repro_torch.serving import graphs
-from repro_torch.serving.engine import Request, ServeEngine
+from repro_torch.serving.engine import (Request, Sampler, ServeEngine,
+                                        _DirectStore)
 
 torch.set_num_threads(2)
 LENS, NEWS, CTX, CHUNK = (200, 130, 160), (40, 6, 12), 256, 48
@@ -173,18 +173,17 @@ def test_moe_replay_equals_eager(cuda, impl):
             params, cfg, {"tokens": torch.from_numpy(toks).to(cuda)},
             plan=plan, gen_headroom=headroom,
             lengths=torch.tensor(lens, dtype=torch.int32, device=cuda))
-        eng = ServeEngine(cfg, params, attn_impl=impl, gen_headroom=headroom,
-                          device=cuda)
         tokens = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
-        stage = graphs.DecodeGraph(eng._decode_fn(plan), eng._sample_dev,
-                                   copy(state0), tokens)
-        fn, eager, tok = eng._decode_fn(plan), copy(state0), tokens.clone()
+        stage = _DirectStore(cfg, params, plan, copy(state0), tokens,
+                             Sampler(device=cuda), runtime="retro",
+                             attn_impl=impl).graph
+        fn, eager, tok = stage.fn, copy(state0), tokens.clone()
         for t in range(8):
             act = np.array([True, t % 3 != 1])
             lg, ids = stage.step(act, stage.state)
             lg, ids = lg.clone(), ids.clone()
             ref, eager = fn(eager, tok, torch.from_numpy(act).to(cuda))
-            tok = eng._sample_dev(ref)
+            tok = stage.sample(ref)
             assert torch.equal(lg, ref), f"step {t}"
             assert torch.equal(ids, tok), f"step {t}"
     torch.cuda.synchronize()

@@ -28,7 +28,8 @@ from repro_torch.interop import (params_from_numpy, tensor_from_numpy,
                                  wave_states_from_numpy)
 from repro_torch.models import model as M
 from repro_torch.models.transformer import ServeState
-from repro_torch.serving.engine import Request, ServeEngine, _OffloadPlane
+from repro_torch.serving.engine import (Request, Sampler, ServeEngine,
+                                        _OffloadPlane)
 
 torch.set_num_threads(2)
 S, CHUNK, HEADROOM = 384, 96, 256
@@ -207,7 +208,10 @@ def _offload_vs_direct(cfg, params, impl, device, steps=6, fault=None,
         WaveState(*(torch.cat([t[i:i + 1], t[j:j + 1]]) for t in w))
         for w in st.kv])
     direct, off = copy(st), copy(st)
-    plane = _OffloadPlane(eng, 2, S)
+    plan = plan_zones(S, cfg.retro, HEADROOM)
+    plane = _OffloadPlane(cfg, params, plan, 2, S, attn_impl=eng.attn_impl,
+                          sample=Sampler(device=device),
+                          placement=eng.placement, device=device)
     active = np.ones(2, bool)
     tok = torch.tensor([5, 7], dtype=torch.int32, device=device)
     # slot 1 first decodes a step of row 0's request, then is handed to
@@ -216,20 +220,19 @@ def _offload_vs_direct(cfg, params, impl, device, steps=6, fault=None,
     for i in range(2):
         plane.admit_slot(i, ServeState(kv=[
             WaveState(*(t[:1].clone() for t in w)) for w in warm.kv]))
-    plane.decode_step(warm, tok, active)
+    plane.step(warm, tok, active)
     for i in range(2):
         plane.admit_slot(i, ServeState(kv=[
             WaveState(*(t[i:i + 1].clone() for t in w)) for w in st.kv]))
     if fail_slot is not None:
         _fail_slot_fetches(plane, fail_slot)
-    plan = plan_zones(S, cfg.retro, HEADROOM)
     out_d, out_o = [], []
     with torch.inference_mode():
         for _ in range(steps):
             a, direct = M.apply_decode(params, cfg, direct, tok, plan=plan,
                                        active=torch.from_numpy(active)
                                        .to(device), attn_impl=impl)
-            b, off = plane.decode_step(off, tok, active)
+            b, _ = plane.step(off, tok, active)
             out_d.append(a.cpu())
             out_o.append(b.cpu())
             tok = a.argmax(-1).to(torch.int32)
@@ -488,12 +491,13 @@ def test_offload_knobs_and_family_gate(models):
     assert not M.supports_offload(cfg, runtime="full")
     eng = ServeEngine(cfg, params, device="cpu", offload=True,
                       fault_profile="transient=0.5,seed=4", cache_frac=0.02)
-    assert eng.fault_profile.transient == 0.5 and eng.fault_profile.seed == 4
-    assert eng._resolve_cache_clusters(256) == 5
-    assert eng._resolve_cache_clusters(10) == 1        # never zero slots
+    fault = eng.placement.fault_profile
+    assert fault.transient == 0.5 and fault.seed == 4
+    assert eng.placement.cache_slots(256) == 5
+    assert eng.placement.cache_slots(10) == 1        # never zero slots
     assert ServeEngine(cfg, params, device="cpu",
-                       cache_clusters=7)._resolve_cache_clusters(256) == 7
-    assert not ServeEngine(cfg, params, device="cpu").offload
+                       cache_clusters=7).placement.cache_slots(256) == 7
+    assert not ServeEngine(cfg, params, device="cpu").placement.offload
 
 
 # ---------------------------------------------------------------------------

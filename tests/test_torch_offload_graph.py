@@ -21,13 +21,14 @@ import torch
 
 from repro_torch.configs import gemma2_2b
 from repro_torch.core.wave_index import WaveState
+from repro_torch.core.zones import plan_zones
 from repro_torch.kernels.wave_attention import ops as wa_ops
 from repro_torch.models import model as M
 from repro_torch.models import transformer
 from repro_torch.models.transformer import ServeState
 from repro_torch.serving import graphs
-from repro_torch.serving.engine import (Request, ServeEngine, ServeMetrics,
-                                        _OffloadPlane)
+from repro_torch.serving.engine import (Request, Sampler, ServeEngine,
+                                        ServeMetrics, _OffloadPlane)
 
 torch.set_num_threads(2)
 S, CHUNK, HEADROOM = 384, 96, 256
@@ -246,9 +247,12 @@ def _planes(cfg, params, impl, device):
     eng.serve([Request(rng.integers(0, cfg.vocab, n).astype(np.int32), 2)
                for n in (S, 300)], batch_size=2)
     st = eng.last_state
+    plan = plan_zones(S, cfg.retro, HEADROOM)
     out = []
     for _ in range(2):
-        plane = _OffloadPlane(eng, 2, S)
+        plane = _OffloadPlane(cfg, params, plan, 2, S, attn_impl=eng.attn_impl,
+                              sample=Sampler(device=device),
+                              placement=eng.placement, device=device)
         for i in range(2):
             plane.admit_slot(i, ServeState(kv=[
                 WaveState(*(t[i:i + 1].clone() for t in w)) for w in st.kv]))
@@ -270,21 +274,20 @@ def _counters(plane):
 @pytest.mark.parametrize("impl", ["jnp", "fused", "pallas"])
 def test_offload_replay_equals_eager(cuda, impl):
     """From one admitted state on the card, eight steps of an eager plane
-    and eight of one whose stage captures after its first step (the
-    warm-up, then seven replays), one row inactive on some: the same logits
-    bits and ids, the same wave-buffer counters and the same bytes to the
-    device."""
+    (``step``) and eight of one whose stage captures after its first step
+    (``decode_step``: the warm-up, then seven replays), one row inactive on
+    some: the same logits bits and ids, the same wave-buffer counters and
+    the same bytes to the device."""
     cfg = _cfg().replace(dtype="bfloat16")
     params = _params(cfg, cuda)
     with torch.inference_mode():
         (pe, se, te), (pg, sg, tg) = _planes(cfg, params, impl, cuda)
         for t, act in enumerate(ACTIVE):
-            le, _ = pe.decode_step(se, te, act)
-            lg, _ = pg.decode_step(sg, tg, act)
+            le, ie = pe.step(se, te, act)
+            lg, ig = pg.decode_step(sg, tg, act)
             assert torch.equal(lg, le), f"step {t}"
-            assert torch.equal(pg.stage.ids, pe.stage.ids), f"step {t}"
+            assert torch.equal(ig, ie), f"step {t}"
             assert torch.equal(tg, te)
-            pg.stage.capture_pieces()
     torch.cuda.synchronize()
     assert (pg.stage.captures, pg.stage.replays) == (1, len(ACTIVE) - 1)
     assert (pe.stage.captures, pe.stage.replays) == (0, 0)
@@ -333,7 +336,7 @@ def test_offload_capture_error_raises(cuda):
 
     stage._rank = reads_back
     with torch.inference_mode():
-        plane.decode_step(state, tok, np.ones(2, bool))
+        plane.step(state, tok, np.ones(2, bool))
         with pytest.raises(RuntimeError):
             stage.capture_pieces()
     assert stage.graphs is None and stage.captures == 0

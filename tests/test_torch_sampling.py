@@ -20,7 +20,8 @@ from repro_torch.configs import gemma2_2b
 from repro_torch.core.zones import plan_zones
 from repro_torch.models import model as M
 from repro_torch.serving import graphs
-from repro_torch.serving.engine import Request, Sampler, ServeEngine
+from repro_torch.serving.engine import (Request, Sampler, ServeEngine,
+                                        _DirectStore)
 
 torch.set_num_threads(2)
 N_DRAWS = 30_000
@@ -108,7 +109,7 @@ def test_temperature_zero_serves_greedy_tokens(model, admission):
     zero, eng0 = _serve(params, cfg, temperature=0.0, seed=9,
                         admission=admission)
     assert zero == greedy
-    assert eng0._sample_dev.generator is None
+    assert eng0.last_graph.sample.generator is None
     rng = np.random.default_rng(4)
     toks = rng.integers(0, cfg.vocab, 150).astype(np.int64)
     with torch.no_grad():
@@ -130,12 +131,11 @@ def test_sampled_step_matches_functional_step(model):
         _, state = M.apply_prefill(params, cfg,
                                    {"tokens": torch.from_numpy(toks)},
                                    plan=plan, gen_headroom=64)
-        eng = ServeEngine(cfg, params, device="cpu", gen_headroom=64,
-                          temperature=1.5)
         sampler = Sampler(1.5, seed=8)
         twin = Sampler(1.5, seed=8)
-        stage = graphs.DecodeGraph(eng._decode_fn(plan), sampler, state,
-                                   torch.tensor([3, 5], dtype=torch.int32))
+        stage = _DirectStore(cfg, params, plan, state,
+                             torch.tensor([3, 5], dtype=torch.int32),
+                             sampler, runtime="retro", attn_impl="jnp").graph
         for _ in range(4):
             lg, ids = stage.step(np.ones(2, bool))
             assert torch.equal(ids, twin(lg))
@@ -160,12 +160,10 @@ def test_sampled_replay_equals_eager(cuda):
             params, cfg, {"tokens": torch.from_numpy(toks).to(cuda)},
             plan=plan, gen_headroom=64)
         saved = [t.clone() for t in graphs.leaves(state)]
-        eng = ServeEngine(cfg, params, device=cuda, gen_headroom=64,
-                          temperature=4.0)
         sampler = Sampler(4.0, seed=3, device=cuda)
         first = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
-        stage = graphs.DecodeGraph(eng._decode_fn(plan), sampler, state,
-                                   first.clone())
+        stage = _DirectStore(cfg, params, plan, state, first.clone(), sampler,
+                             runtime="retro", attn_impl="jnp").graph
         act = np.ones(2, bool)
 
         def restore(rng_state):

@@ -411,6 +411,27 @@ def test_run_wave_serves_one_slot_each(serve_models):
     assert all(r.done and len(r.out_tokens) == 3 for r in reqs)
 
 
+@pytest.mark.parametrize("offload", [False, True], ids=["direct", "offload"])
+def test_serve_call_freed_with_the_engine_hooks(serve_models, offload):
+    """Once the engine's hooks on a call (``last_state``, ``last_graph``,
+    ``last_plane``) are dropped, as a benchmark does between calls, nothing
+    holds the call's serve state or, under offload, its host stores: no
+    store outlives its call to add a whole serve state to the next call's
+    peak memory."""
+    import gc
+    import weakref
+    _, _, cfg, params = serve_models
+    eng = ServeEngine(cfg, params, admission="blocking", gen_headroom=64,
+                      max_context=SERVE_CTX, offload=offload, device="cpu")
+    eng.serve([Request(p, 3) for p in _serve_prompts(cfg.vocab)], 2)
+    refs = [weakref.ref(eng.last_state.kv[0].k_store)]
+    if offload:
+        refs.append(weakref.ref(eng.last_plane.layers[0]))
+    eng.last_state = eng.last_graph = eng.last_plane = None
+    gc.collect()
+    assert all(r() is None for r in refs)
+
+
 def test_serve_launcher_runtime_and_admission(capsys):
     """``--runtime``, ``--admission`` and ``--prefill-bucket`` reach the
     engine and the report names the runtime and admission it ran."""

@@ -177,7 +177,7 @@ def test_spans_add_up(model, served):
         assert {rid: sum(t) for rid, t in chunks.items()} == \
             {i: p for i, (p, _) in enumerate(PROMPTS)}
         assert sp.count("chunk") == len(admits) and sp.count("fin") == n
-    if eng.offload:
+    if eng.placement.offload:
         plane = eng.last_plane
         assert sp.count("admit_slot") == n
         assert sp.count("decode_step") == plane.counts["steps"] == m.steps
