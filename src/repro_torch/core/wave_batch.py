@@ -21,8 +21,10 @@ the transport the batch was built with decides:
 * the production ``LinkTransport`` (an infallible zero-latency view of the
   store): every miss of the layer is gathered with one indexed copy per
   row into the caller's staging, in (row, head, position) order, and each
-  fresh row's crc32 is verified there. A buffer with a mismatch (a raw
-  store write that bypassed ``store_rows``) has its misses replayed through
+  fresh row's crc32 is verified there (one native pass a row of the batch,
+  each fresh row checksummed right after its copy). A buffer with a
+  mismatch (a raw store write that bypassed ``store_rows``) has its misses
+  replayed through
   the per-miss loop, which gives the reference's retries, corrupt and
   failed counts, ``ok`` mask and virtual deadline; its failed rows leave
   the staging.
@@ -32,6 +34,13 @@ the transport the batch was built with decides:
   positions), since each draw of a seeded transport changes the next.
 
 A ``Translation`` says how many fresh rows each path fetched.
+
+The payload checksums of ``admit``, ``store_rows`` and the gather are
+computed many rows a call by the native routine of ``core/row_crc.py``,
+the same values as ``zlib.crc32``; on a host without its carry-less-multiply
+fold, row by row with ``zlib``. ``native_crc_rows`` and ``zlib_crc_rows``
+count the rows each way. The per-miss ``fetch`` checks one row at a time
+with ``zlib`` either way.
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 
+from repro_torch.core import row_crc
 from repro_torch.core.wave_buffer import (BufferStats, FatalTransportError,
                                           LinkTransport, TransientFault, _crc)
 
@@ -108,6 +118,8 @@ class WaveBufferBatch:
             else LinkTransport()
         self.max_retries, self.backoff_s = max_retries, backoff_s
         self.bytes_per_cluster = D * 4
+        self.crc = row_crc.native()     # None: zlib, row by row
+        self.native_crc_rows = self.zlib_crc_rows = 0
         self.stores: List[Optional[np.ndarray]] = [None] * B   # (H, M, D) f32
         self.checksums = np.zeros((B, H, M), np.uint64)
         self.cache_slot = np.full((B, H, M), -1, np.int64)
@@ -140,9 +152,8 @@ class WaveBufferBatch:
         old = _stats(self.stats[b].sum(0)) if self.stores[b] is not None \
             else None
         self.stores[b] = host
-        for h in range(self.H):
-            for i in range(self.M):
-                self.checksums[b, h, i] = _crc(host[h, i])
+        self.checksums[b] = self._checksum(host.reshape(-1, self.D)) \
+            .reshape(self.H, self.M)
         self.cache_slot[b] = -1
         self.owner[b] = -1
         self.stamp[b] = 0
@@ -160,8 +171,23 @@ class WaveBufferBatch:
         k = rows.shape[1]
         store[:, start:start + k] = rows
         for h in range(self.H):
-            for i in range(start, start + k):
-                self.checksums[b, h, i] = _crc(store[h, i])
+            self.checksums[b, h, start:start + k] = \
+                self._checksum(store[h, start:start + k])
+
+    def _checksum(self, rows: np.ndarray) -> np.ndarray:
+        """The crc32 of each of the (n, D) C-contiguous ``rows``: one native
+        call, else one ``zlib`` call a row."""
+        self._count(len(rows))
+        if self.crc is not None:
+            return self.crc.rows(rows)
+        return np.fromiter((zlib.crc32(row) for row in rows), np.uint64,
+                           len(rows))
+
+    def _count(self, n: int) -> None:
+        if self.crc is None:
+            self.zlib_crc_rows += n
+        else:
+            self.native_crc_rows += n
 
     def total(self) -> BufferStats:
         """Every buffer's counters summed."""
@@ -245,15 +271,26 @@ class WaveBufferBatch:
         is_fresh = np.zeros(n, bool)
         is_fresh[np.unique(buf * self.M + cid, return_index=True)[1]] = True
         bounds = np.searchsorted(mb, np.arange(B + 1))
+        row = (mh * self.M + cid).astype(np.int64, copy=False)
+        crc = np.zeros(n, np.uint32)
         for b in range(B):
             lo, hi = bounds[b], bounds[b + 1]
-            if hi > lo:
-                np.take(self.stores[b].reshape(H * self.M, self.D),
-                        mh[lo:hi] * self.M + cid[lo:hi], axis=0,
-                        out=out[lo:hi], mode="clip")
+            if hi == lo:
+                continue
+            store = self.stores[b].reshape(H * self.M, self.D)
+            if self.crc is not None:
+                # one pass: each fresh row checksummed right after its copy
+                self.crc.gather(store, row[lo:hi], out[lo:hi],
+                                is_fresh[lo:hi], crc[lo:hi])
+            else:
+                np.take(store, row[lo:hi], axis=0, out=out[lo:hi],
+                        mode="clip")
         fk = np.flatnonzero(is_fresh)
-        crc = np.fromiter((zlib.crc32(out[k]) for k in fk), np.uint64,
-                          len(fk))
+        if self.crc is None:
+            crc[fk] = np.fromiter((zlib.crc32(out[k]) for k in fk),
+                                  np.uint32, len(fk))
+        self._count(len(fk))
+        crc = crc[fk]
         clean = np.ones(B * H, bool)
         clean[buf[fk[crc != self.checksums[mb[fk], mh[fk], cid[fk]]]]] = False
         good = clean[buf]

@@ -1,10 +1,11 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host C routines.
 
-Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface under ``<repo>/build/kernels`` at
-first use, then loaded with ``ctypes``. A library is rebuilt when its source,
-or a ``*.cuh`` header beside it, is newer. Several sources compile in
-parallel (one ``nvcc`` each).
+Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a``, each
+``csrc/*.c`` source by the host C compiler, into a shared library with a
+plain C interface under ``<repo>/build/kernels`` at first use, then loaded
+with ``ctypes``. A library is rebuilt when its source, or a header beside it
+(``*.cuh`` for a ``.cu``, ``*.h`` for a ``.c``), is newer. Several sources
+compile in parallel (one compiler process each).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ REPO = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CC_FLAGS = ["-std=c11", "-O3", "-shared", "-fPIC"]
 
 _LOADED: Dict[Path, ctypes.CDLL] = {}
 
@@ -33,12 +35,26 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def cc_path() -> str:
+    for cand in ("cc", "gcc", "clang"):
+        path = shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no host C compiler (cc, gcc or clang) on PATH")
+
+
+def _command(src: Path, out: Path) -> List[str]:
+    if src.suffix == ".c":
+        return [cc_path(), *CC_FLAGS, "-o", str(out), str(src)]
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src)]
+
+
 def library_path(source: Path) -> Path:
     return BUILD_DIR / f"lib{source.stem}.so"
 
 
 def build(sources: Sequence[Path]) -> List[dict]:
-    """Compile every stale source, all ``nvcc`` processes started together.
+    """Compile every stale source, all compiler processes started together.
     Returns one record per source: ``{"source", "lib", "seconds", "log"}``
     (``seconds`` is 0.0 and ``log`` empty for an up-to-date library).
     Raises if any compile fails."""
@@ -47,14 +63,13 @@ def build(sources: Sequence[Path]) -> List[dict]:
     for src in sources:
         src = Path(src)
         lib = library_path(src)
-        newest = max(f.stat().st_mtime
-                     for f in (src, *src.parent.glob("*.cuh")))
+        headers = src.parent.glob("*.h" if src.suffix == ".c" else "*.cuh")
+        newest = max(f.stat().st_mtime for f in (src, *headers))
         if lib.exists() and lib.stat().st_mtime >= newest:
             jobs.append((src, lib, None, None, 0.0))
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        proc = subprocess.Popen(_command(src, tmp), stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((src, lib, tmp, proc, time.perf_counter()))
     out, failed = [], []
@@ -70,7 +85,7 @@ def build(sources: Sequence[Path]) -> List[dict]:
         os.replace(tmp, lib)
         out.append(dict(source=str(src), lib=str(lib), seconds=dt, log=log))
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        raise RuntimeError("compile failed:\n" + "\n".join(failed))
     return out
 
 

@@ -518,11 +518,16 @@ class _OffloadPlane:
     (``repro_torch.spans``, while a recorder is active): ``decode_step``
     and per layer ``readback_ids`` (the id wait), ``translate``, ``stage``
     (the next piece's inputs), ``launch`` (a replay, or the eager enqueue;
-    piece 0 at layer -1) and ``drain_admissions``; ``admit_slot``;
-    ``offload_flush`` and ``host_flush``. ``counts`` holds the steps, the
-    bytes copied to the device, and the fresh miss rows fetched by the
-    layer-wide gather (``gathered_rows``) and one transport ``fetch`` at a
-    time (``per_miss_rows``: a transport other than the production one).
+    piece 0 at layer -1) and ``drain_admissions``; ``admit_slot`` over per
+    layer ``admit_copy`` (pack and device-to-host copy) and ``admit_crc``
+    (the stores' checksums and fresh tables); ``offload_flush`` and
+    ``host_flush``. ``counts`` holds the steps, the bytes copied to the
+    device, the fresh miss rows fetched by the layer-wide gather
+    (``gathered_rows``) and one transport ``fetch`` at a time
+    (``per_miss_rows``: a transport other than the production one), and the
+    layers' payload rows checksummed at admission, store and gather by the
+    native routine (``native_crc_rows``) or, on a host without its fold, by
+    ``zlib`` (``zlib_crc_rows``).
 
     A layer's fetched rows stay in its own pinned staging until the next
     step's cache update has sent its admissions. Each layer has two, used
@@ -568,8 +573,8 @@ class _OffloadPlane:
         self.degraded_steps = 0             # steps with >= 1 masked cluster
         self.dropped_cluster_steps = 0      # cluster-step masked count
         self.failed_slots: Dict[int, str] = {}   # slot -> fatal fault message
-        self.counts = dict(steps=0, h2d_bytes=0, gathered_rows=0,
-                           per_miss_rows=0)
+        self._counts = dict(steps=0, h2d_bytes=0, gathered_rows=0,
+                            per_miss_rows=0)
         self.cfg = cfg
         self._flush = M.offload_decode_fns(cfg)[-1]
         self.stage = OffloadStage(
@@ -593,9 +598,17 @@ class _OffloadPlane:
         self.pending_adm: List[Optional[Tuple[np.ndarray, torch.Tensor]]] = \
             [None] * self.L
 
+    @property
+    def counts(self) -> Dict[str, int]:
+        """The call's counters (see the class docstring)."""
+        return dict(self._counts,
+                    native_crc_rows=sum(l.native_crc_rows
+                                        for l in self.layers),
+                    zlib_crc_rows=sum(l.zlib_crc_rows for l in self.layers))
+
     def _h2d(self, a: np.ndarray) -> torch.Tensor:
         """Host array -> device, counted in ``counts["h2d_bytes"]``."""
-        self.counts["h2d_bytes"] += a.nbytes
+        self._counts["h2d_bytes"] += a.nbytes
         return to_device(a, self.dev)
 
     # ----------------------------------------------------------- admission
@@ -610,10 +623,12 @@ class _OffloadPlane:
             self.ncl[i] = int(st1.kv[0].n_clusters[0])  # retrolint: sync(cluster-count mirror)
             for l in range(self.L):
                 st = st1.kv[l]
-                host = _pack(  # retrolint: sync(store offload)
-                    st.k_store[0], st.v_store[0], st.pos_store[0]) \
-                    .cpu().numpy()                              # (H, M, D)
-                old = self.layers[l].admit(i, host)
+                with spans.host("admit_copy", layer=l):
+                    host = _pack(  # retrolint: sync(store offload)
+                        st.k_store[0], st.v_store[0], st.pos_store[0]) \
+                        .cpu().numpy()                          # (H, M, D)
+                with spans.host("admit_crc", layer=l):
+                    old = self.layers[l].admit(i, host)
                 if old is not None:
                     self.retired.merge(old)
                 self._drop_queued(l, i)
@@ -655,7 +670,7 @@ class _OffloadPlane:
         layer = self.layers[l]
         rows = active & layer.admitted
         rows[list(self.failed_slots)] = False
-        par = self.counts["steps"] % 2
+        par = self._counts["steps"] % 2
         tr = layer.translate(ids, rows, self.ncl, self.fetch_deadline_s,
                              self.host_rows[l, par])
         # a visited buffer's ids default to their staging slots. A fatal
@@ -668,8 +683,8 @@ class _OffloadPlane:
         sv[1] = ~tr.failed
         self.dropped_cluster_steps += int(tr.failed.sum())
         self.failed_slots.update(tr.fatal)
-        self.counts["gathered_rows"] += tr.gathered
-        self.counts["per_miss_rows"] += tr.per_miss
+        self._counts["gathered_rows"] += tr.gathered
+        self._counts["per_miss_rows"] += tr.per_miss
         if not tr.n:
             return sv, None
         mb, mh, mj = np.nonzero(tr.fetched)
@@ -687,7 +702,7 @@ class _OffloadPlane:
         if adm is None:
             self.pending_adm[l] = None
             return False
-        par, k = self.counts["steps"] % 2, len(adm.src)
+        par, k = self._counts["steps"] % 2, len(adm.src)
         rows = self.h_rows[l, par, :k] if (adm.src == np.arange(k)).all() \
             else torch.from_numpy(self.host_rows[l, par][adm.src])
         self.pending_adm[l] = (np.stack([adm.rows, adm.heads, adm.slots]),
@@ -711,7 +726,7 @@ class _OffloadPlane:
         overwrites; the state is updated in place."""
         self._step += 1
         t = self._step
-        cn = self.counts
+        cn = self._counts
         cn["steps"] += 1
         drops_before = self.dropped_cluster_steps
         st = self.stage

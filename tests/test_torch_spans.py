@@ -196,6 +196,32 @@ def test_spans_add_up(model, served):
     assert top <= {"admit", "first_token", "decode", "harvest", "flush"}
 
 
+def test_admission_spans_split_admit_slot(model, served):
+    """Each offload admission's ``admit_slot`` holds one ``admit_copy`` (pack
+    and device-to-host copy) and one ``admit_crc`` (checksums) a layer, in
+    layer order; a direct call has neither."""
+    cfg = model[0]
+    kw, _, (eng, reqs, m) = served
+    sp = m.spans
+    if not eng.placement.offload:
+        assert sp.count("admit_copy") == 0 == sp.count("admit_crc")
+        return
+    slots = [i for i, s in enumerate(sp.records) if s.name == "admit_slot"]
+    assert len(slots) == len(reqs)
+    for i in slots:
+        inner = [(s.name, s.attrs["layer"]) for s in sp.records
+                 if s.parent == i]
+        assert inner == [(name, l) for l in range(cfg.n_layers)
+                         for name in ("admit_copy", "admit_crc")]
+    assert sp.seconds("admit_copy") + sp.seconds("admit_crc") <= \
+        sp.seconds("admit_slot")
+    # every store row checksummed by the native routine, none by zlib
+    counts = eng.last_plane.counts
+    assert counts["zlib_crc_rows"] == 0
+    assert counts["native_crc_rows"] >= \
+        len(reqs) * cfg.n_layers * eng.last_plane.H * eng.last_plane.M
+
+
 @pytest.mark.parametrize("on", [False, True], ids=["spans_off", "spans_on"])
 def test_span_names_on_the_profiler_host_timeline(model, on):
     """Spans on or off, a profiled call (short answers: no flush) carries

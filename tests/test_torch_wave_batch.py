@@ -11,14 +11,20 @@ flushes through ``store_rows``, under one policy, cache size, deadline and
 transport, and requires both sides to give the same slot ids and validity,
 miss ids and rows, queued admission ids and rows, trace events (the cache
 update's kind, each drain's ``queued``), dropped and failed slots, every
-``BufferStats`` field of every buffer and the same mapping tables.
+``BufferStats`` field of every buffer and the same mapping tables. Every
+case runs with the payload checksums of the native routine
+(``core/row_crc.py``) and, as ``<case>-zlib``, with the row-by-row ``zlib``
+path the plane takes on a host without the routine's fold; both checksum
+the same rows the same number of times.
 """
+import zlib
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import row_crc, wave_batch
 from repro_torch.core.wave_batch import WaveBufferBatch
 from repro_torch.core.wave_buffer import (BufferStats, FatalTransportError,
                                           FaultProfile, FaultyTransport,
@@ -154,7 +160,7 @@ class _Batched:
             failed_slots={}, ncl=None, fetch_deadline_s=deadline, C=C,
             h_rows=h_rows, host_rows=h_rows.numpy(), pending_adm=[None] * L,
             dropped_cluster_steps=0,
-            counts=dict(steps=0, gathered_rows=0, per_miss_rows=0))
+            _counts=dict(steps=0, gathered_rows=0, per_miss_rows=0))
         self.retired = BufferStats()
         self.sent = {True: 0, False: 0}     # queued rows in the staging?
 
@@ -232,7 +238,7 @@ def _run(case):
                 for b in (0, 1):
                     side.bufs[0][b][1].kv_host[:3, 0] += 1.0
         active = alive & (rng.random(B) < 0.8)
-        batch.plane.counts["steps"] = t
+        batch.plane._counts["steps"] = t
         for l in range(L):
             # ids from a working set a little past the live clusters: hits,
             # misses and dead ids; on odd steps with repeats (pending hits),
@@ -261,9 +267,45 @@ def _run(case):
     return loop, batch, fatal
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_batched_plane_matches_per_buffer_loop(case):
-    loop, batch, fatal = _run(case)
+class _CountingZlib:
+    """``zlib`` as ``core/wave_batch.py`` sees it, counting crc32 calls."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def crc32(self, data):
+        self.calls += 1
+        return zlib.crc32(data)
+
+
+def _zlib_run(case, monkeypatch):
+    """``_run`` with the plane's row-by-row ``zlib`` path (as on a host
+    without the fold). Returns ``_run``'s result and its crc32 calls."""
+    with monkeypatch.context() as mp:
+        counter = _CountingZlib()
+        mp.setattr(row_crc, "native", lambda: None)
+        mp.setattr(wave_batch, "zlib", counter)
+        return _run(case), counter.calls
+
+
+@pytest.mark.parametrize(
+    "case,crc", [pytest.param(c, "native", id=c) for c in CASES]
+    + [pytest.param(c, "zlib", id=f"{c}-zlib") for c in CASES])
+def test_batched_plane_matches_per_buffer_loop(case, crc, monkeypatch):
+    if crc == "native":
+        assert row_crc.native() is not None, "no native routine on x86-64"
+        loop, batch, fatal = _run(case)
+        # the same rows checksummed as by zlib, all natively
+        want = (_zlib_run(case, monkeypatch)[1], 0)
+    else:
+        (loop, batch, fatal), calls = _zlib_run(case, monkeypatch)
+        want = (0, calls)
+    crc_rows = tuple(sum(getattr(layer, key) for layer in batch.plane.layers)
+                     for key in ("native_crc_rows", "zlib_crc_rows"))
+    assert crc_rows == want
+    # four admissions (rows 0, 1, 2, then 0 again) checksum every row of
+    # every layer's store; flushes and gathers add theirs
+    assert sum(crc_rows) >= 4 * L * H * M
     policy, C, deadline, profile, raw = CASES[case]
     assert loop.retired == batch.retired and loop.retired.lookups > 0
     over_link = loop.retired.bytes_over_link
@@ -288,7 +330,7 @@ def test_batched_plane_matches_per_buffer_loop(case):
                 over_link += want.stats.bytes_over_link
     # every fresh row through the gather under the production transport,
     # through the per-miss fetch under a fault profile
-    counts = batch.plane.counts
+    counts = batch.plane._counts
     rows = over_link // (D * 4)
     if profile is None:
         assert (counts["gathered_rows"], counts["per_miss_rows"]) == (rows, 0)
